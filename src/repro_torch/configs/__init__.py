@@ -1,0 +1,36 @@
+"""Architecture registry: ``get_config(name)``; ``reduced.reduced(cfg)``.
+
+Only the architectures the port can run are registered; the others
+join with their model families.
+"""
+from __future__ import annotations
+
+from .base import ModelConfig, ShapeCell  # noqa: F401
+
+_REGISTRY = {}
+
+
+def register(fn):
+    cfg = fn()
+    _REGISTRY[cfg.name] = fn
+    return fn
+
+
+def _load_all():
+    from . import qwen1_5_0_5b  # noqa: F401
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    _load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"{name!r} is not ported yet; ported: "
+                       f"{sorted(_REGISTRY)}")
+    cfg = _REGISTRY[name]()
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg
+
+
+def list_archs():
+    _load_all()
+    return sorted(_REGISTRY.keys())

@@ -1,0 +1,192 @@
+"""Spike-coded boundaries at world size 1.
+
+The port of ``repro.core.boundary`` for one device.  In the reference
+every tensor that crosses a chip boundary moves through a collective
+whose wire carries spike counts (or int8) instead of floats.  On one
+card there is no peer, but the boundary still exists: each collective
+here runs its encode -> wire -> decode through a size-1 "gather" (a
+leading axis of length 1), so the codec's numerics — and therefore the
+served tokens — are the reference's at tp=1.
+
+Modes ported: ``none``, ``int8`` and ``spike_fused``.  Any other mode,
+and any world size above 1, raises ``NotImplementedError``.  Gradients
+use the autograd of the local encode/decode (straight-through rounding
+and the surrogate gate from ``core.spike``), which is what the
+reference's custom VJPs compute at one shard.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import spike
+from .spike import SpikeConfig
+
+_MODES = ("none", "int8", "spike_fused")
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundaryCodec:
+    """Static description of one class of boundary."""
+
+    mode: str = "none"
+    cfg: SpikeConfig = SpikeConfig()
+    capacity: float = 0.125        # sparse_topk capacity fraction
+    bwd_mode: str = "none"         # compress backward wire too ("int8"|"none")
+
+
+def _check(codec: BoundaryCodec, world_size: int = 1):
+    if codec.mode not in _MODES:
+        raise NotImplementedError(
+            f"boundary mode {codec.mode!r}: not ported yet (ported: "
+            f"{', '.join(_MODES)})")
+    if world_size != 1:
+        raise NotImplementedError(
+            f"coded collectives over {world_size} ranks: the port runs "
+            "at world size 1 only")
+
+
+# ---------------------------------------------------------------------------
+# local encode/decode to the integer wire format
+# ---------------------------------------------------------------------------
+
+
+def _encode_local(x, params, codec: BoundaryCodec):
+    """x float [..., C] -> (wire int tensor, int8 scale or None, counts)."""
+    _check(codec)
+    if codec.mode == "int8":
+        amax = torch.amax(torch.abs(x), dim=tuple(range(x.ndim - 1)),
+                          keepdim=True)
+        s = torch.clamp(amax, min=1e-6) / 127.0
+        wire = torch.round(x / s).to(torch.int8)
+        return wire, s, None
+    counts = spike.encode(x, params, codec.cfg)      # float in {-T..T}
+    return counts.to(torch.int8), None, counts
+
+
+def _decode_local(wire, params, codec: BoundaryCodec, scale_i8, dtype):
+    # decode directly in the compute dtype: counts are small integers,
+    # exactly representable in bf16
+    if codec.mode == "int8":
+        return (wire.to(torch.float32) * scale_i8).to(dtype)
+    counts = wire.to(dtype)
+    return spike.decode(counts, params, codec.cfg, dtype)
+
+
+def _local_roundtrip(x, params, codec: BoundaryCodec):
+    """Differentiable local view of encode -> wire -> decode."""
+    if codec.mode == "int8":
+        amax = torch.amax(torch.abs(x), dim=tuple(range(x.ndim - 1)),
+                          keepdim=True)
+        s = torch.clamp(amax, min=1e-6) / 127.0
+        return spike.round_ste(x / s) * s
+    counts = spike.encode(x, params, codec.cfg)
+    return spike.decode(counts, params, codec.cfg, x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# train/prefill boundaries: gather-in and reduce-scatter-out of a layer
+# ---------------------------------------------------------------------------
+
+
+def coded_all_gather(x, params, codec: BoundaryCodec, axis: int = 0,
+                     world_size: int = 1):
+    """Token-axis all_gather over one rank: the local encode -> wire ->
+    decode of the reference's coded gather (per-channel int8 scales)."""
+    _check(codec, world_size)
+    if codec.mode == "none":
+        return x
+    wire, s8, _ = _encode_local(x, params, codec)
+    return _decode_local(wire, params, codec, s8, x.dtype)
+
+
+def coded_psum_scatter(x, params, codec: BoundaryCodec, axis: int = 0,
+                       world_size: int = 1):
+    """Reduce-scatter of partial sums over one rank: encode, exchange
+    one chunk with itself, decode and sum — the reference's spike
+    accumulation at n=1."""
+    _check(codec, world_size)
+    if codec.mode == "none":
+        return x
+    wire, s8, _ = _encode_local(x, params, codec)
+    dec = _decode_local(wire.unsqueeze(0), params, codec,
+                        None if s8 is None else s8.unsqueeze(0), x.dtype)
+    return torch.sum(dec, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# decode-path boundaries (token-replicated activations)
+# ---------------------------------------------------------------------------
+#
+# Both stay BATCH-INDEPENDENT: no reduction mixes slots, and int8 scales
+# are per token, so a slot's greedy stream does not depend on its
+# neighbours in the batch.
+
+
+def wire_roundtrip(x, params, codec: BoundaryCodec):
+    """Local encode -> wire -> decode for a replicated decode activation."""
+    _check(codec)
+    if codec.mode == "none":
+        return x
+    if codec.mode == "int8":
+        s = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True),
+                        min=1e-6) / 127.0
+        return (spike.round_ste(x / s) * s).to(x.dtype)
+    return _local_roundtrip(x, params, codec)
+
+
+def coded_psum(x, params, codec: BoundaryCodec, world_size: int = 1):
+    """All-reduce of partial sums with the coded wire, over one rank.
+
+    Each rank encodes its partial, the wire is gathered (here: a
+    leading axis of length 1), and every rank decodes and sums — so at
+    tp=1 the codec's rounding still applies, exactly as in the
+    reference."""
+    _check(codec, world_size)
+    if codec.mode == "none":
+        return x
+    if codec.mode == "int8":
+        s = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True),
+                        min=1e-6) / 127.0
+        wire_g = torch.round(x / s).to(torch.int8).unsqueeze(0)
+        s_g = s.unsqueeze(0)
+        dec = wire_g.to(torch.float32) * s_g.to(torch.float32)
+        return torch.sum(dec, dim=0).to(x.dtype)
+    wire, _, _ = _encode_local(x, params, codec)
+    dec = _decode_local(wire.unsqueeze(0), params, codec, None, x.dtype)
+    return torch.sum(dec, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# decode-step head-space boundary: the attention partial combine
+# ---------------------------------------------------------------------------
+
+
+def quantize_partial(o):
+    """Per-token int8 absmax quantization of a locally normalized
+    attention partial ``[..., dh]`` -> ``(wire int8, scale f32)``.
+
+    The same contract as the paged-decode kernel's epilogue, so the
+    reference walk and the kernel put the same bytes on the wire."""
+    o = o.to(torch.float32)
+    s = torch.clamp(torch.amax(torch.abs(o), dim=-1, keepdim=True),
+                    min=1e-6) / 127.0
+    return torch.round(o / s).to(torch.int8), s
+
+
+def coded_combine_partials(wire, scale, lse, out_dtype, world_size: int = 1):
+    """LSE-weighted combine of int8-coded decode partials over one shard
+    (the gathers are a leading axis of length 1)."""
+    if world_size != 1:
+        raise NotImplementedError(
+            "coded partial combine over several shards: not ported yet")
+    wire_g = wire.unsqueeze(0)
+    s_g = scale.unsqueeze(0)
+    lse_g = lse.unsqueeze(0)
+    m = torch.amax(lse_g, dim=0)
+    w = torch.exp(lse_g - m)
+    dec = wire_g.to(torch.float32) * s_g.to(torch.float32)
+    o_sum = torch.sum(dec * w[..., None], dim=0)
+    l_sum = torch.sum(w, dim=0)
+    return (o_sum / torch.clamp(l_sum[..., None], min=1e-30)).to(out_dtype)

@@ -1,0 +1,310 @@
+"""Attention + dense-MLP blocks at tp = 1, with the coded boundaries.
+
+The port of ``repro.models.blocks_attn`` for one device.  Every boundary
+the reference puts on a collective (the gather into a block, the
+reduce-scatter or psum out of it) still runs its codec here through the
+world-size-1 collectives of ``core.boundary``, so the activations the
+blocks see are the reference's.
+
+Decode attends over the serving engine's shared KV page pool: new K/V
+rows are written through the block table (``_paged_kv_write``) and the
+step attends either through the paged-decode kernel over the compacted
+page lists (the fused walk) or by gathering the full block table
+(``_paged_kv_gather``, the reference walk).  Unlike the reference's
+functional updates, pool writes happen in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import boundary
+from ..kernels import ops as kops
+from . import common
+from .context import Context, pool_local_pages
+from .params import pdef, spike_pdefs
+
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# dims and parameter defs
+# ---------------------------------------------------------------------------
+
+
+def attn_dims(cfg, tp=1):
+    dh = cfg.d_head
+    Hkv = cfg.n_kv_heads
+    if Hkv == cfg.n_heads:                      # MHA: pad both together
+        Hq = cfg.padded(cfg.n_heads, tp)
+        Hkv_p = Hq
+        kv_rep = False
+    else:
+        Hq = cfg.padded(cfg.n_heads, tp)
+        while Hq % Hkv != 0:
+            Hq += tp
+        Hkv_p = Hkv
+        kv_rep = Hkv % tp != 0
+    Hq_loc = Hq // tp
+    Hkv_loc = Hkv_p if kv_rep else Hkv_p // tp
+    return dict(dh=dh, Hq=Hq, Hq_loc=Hq_loc, Hkv=Hkv_p, Hkv_loc=Hkv_loc,
+                kv_rep=kv_rep, group=Hq // Hkv_p)
+
+
+def attn_defs(cfg, tp=1):
+    d = attn_dims(cfg, tp)
+    D, dh = cfg.d_model, d["dh"]
+    kv_tp = None if d["kv_rep"] else 1
+    defs = {
+        "ln": pdef(D, init="zeros"),
+        "wq": pdef(D, d["Hq"] * dh, tp=1, fsdp=0),
+        "wk": pdef(D, d["Hkv"] * dh, tp=kv_tp, fsdp=0),
+        "wv": pdef(D, d["Hkv"] * dh, tp=kv_tp, fsdp=0),
+        "wo": pdef(d["Hq"] * dh, D, tp=0, fsdp=1),
+        "sp_in": spike_pdefs(D),
+        "sp_out": spike_pdefs(D),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = pdef(d["Hq"] * dh, tp=0, init="zeros")
+        defs["bk"] = pdef(d["Hkv"] * dh, tp=(None if d["kv_rep"] else 0),
+                          init="zeros")
+        defs["bv"] = pdef(d["Hkv"] * dh, tp=(None if d["kv_rep"] else 0),
+                          init="zeros")
+    if cfg.post_norm:
+        defs["post_ln"] = pdef(D, init="zeros")
+    return defs
+
+
+def mlp_defs(cfg, tp=1):
+    D = cfg.d_model
+    F = cfg.ff_padded(tp)
+    defs = {
+        "ln2": pdef(D, init="zeros"),
+        "w1": pdef(D, F, tp=1, fsdp=0),
+        "w3": pdef(D, F, tp=1, fsdp=0),
+        "w2": pdef(F, D, tp=0, fsdp=1),
+        "sp_in2": spike_pdefs(D),
+        "sp_out2": spike_pdefs(D),
+    }
+    if cfg.post_norm:
+        defs["post_ln2"] = pdef(D, init="zeros")
+    return defs
+
+
+def _rope(cfg, x, positions):
+    if cfg.rope_kind == "rope":
+        return common.apply_rope(x, positions, cfg.rope_theta)
+    if cfg.rope_kind == "none":
+        return x
+    raise NotImplementedError(f"rope_kind={cfg.rope_kind!r}: not ported")
+
+
+def _check_mode(cfg):
+    if cfg.hnn_mode == "snn":
+        raise NotImplementedError("hnn_mode='snn': not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# forward: prefill
+# ---------------------------------------------------------------------------
+
+
+def attn_fwd(p, x, ctx: Context, aux, kind="attn"):
+    """x [B, S, D] -> (x', cache {k, v} [B, S, Hkv, dh] in prefill mode,
+    else None)."""
+    cfg = ctx.cfg
+    _check_mode(cfg)
+    d = attn_dims(cfg)
+    dh = d["dh"]
+    h = common.norm(x, p["ln"], cfg.norm)
+    xg = boundary.coded_all_gather(h, p["sp_in"], ctx.codec, axis=1)
+    B, S, _ = xg.shape
+    q = xg @ p["wq"]
+    k = xg @ p["wk"]
+    v = xg @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, d["Hq"], dh)
+    k = k.reshape(B, S, -1, dh)
+    v = v.reshape(B, S, -1, dh)
+    q = _rope(cfg, q, aux["positions"])
+    k = _rope(cfg, k, aux["positions"])
+    window = cfg.window if kind == "local" else 0
+    out = common.flash_attention(
+        q, k, v, causal=not ctx.is_encoder, window=window,
+        cap=cfg.attn_softcap, q_chunk=min(512, S), kv_chunk=min(512, S))
+    part = out.reshape(B, S, d["Hq"] * dh) @ p["wo"]
+    y = boundary.coded_psum_scatter(part, p["sp_out"], ctx.codec, axis=1)
+    if cfg.post_norm:
+        y = common.norm(y, p["post_ln"], cfg.norm)
+    cache = {"k": k, "v": v} if ctx.mode == "prefill" else None
+    return x + y, cache
+
+
+def mlp_fwd(p, x, ctx: Context):
+    cfg = ctx.cfg
+    _check_mode(cfg)
+    h = common.norm(x, p["ln2"], cfg.norm)
+    if ctx.mode == "decode":
+        # tokens replicated: roundtrip in, spike-accumulated psum out
+        h = boundary.wire_roundtrip(h, p["sp_in2"], ctx.codec)
+        hh = common.act_fn(h @ p["w1"], cfg.act) * (h @ p["w3"])
+        y = boundary.coded_psum(hh @ p["w2"], p["sp_out2"], ctx.codec)
+    else:
+        xg = boundary.coded_all_gather(h, p["sp_in2"], ctx.codec, axis=1)
+        hh = common.act_fn(xg @ p["w1"], cfg.act) * (xg @ p["w3"])
+        y = boundary.coded_psum_scatter(hh @ p["w2"], p["sp_out2"],
+                                        ctx.codec, axis=1)
+    if cfg.post_norm:
+        y = common.norm(y, p["post_ln2"], cfg.norm)
+    return x + y
+
+
+# ---------------------------------------------------------------------------
+# paged KV: block-table indexed writes/gathers on the shared page pool
+# ---------------------------------------------------------------------------
+
+
+def paged_write_targets(bt, qpos, pages_local, page_size):
+    """Valid (slot, query) -> (pool row, offset) write targets.
+
+    bt [B, PPS] int32 global page ids (-1 unmapped); qpos [B, K1]
+    absolute write positions.  A write whose page is unmapped, not
+    resident in this pool, or whose position lies past the block table
+    is dropped, never clipped into a live page — so an evicted slot (bt
+    row all -1) cannot corrupt a recycled page.  Torch has no dropping
+    scatter, so the drop is an explicit mask; the targets are the same
+    for every layer of a step, so callers compute them once (one
+    device-to-host sync per step for the mask's size).  Returns index
+    tensors ``(b, j, loc, off)`` of the kept writes.
+    """
+    PPS = bt.shape[1]
+    pj = torch.div(qpos, page_size, rounding_mode="floor")
+    oj = qpos - pj * page_size
+    g = torch.gather(bt, 1, pj.clamp(0, PPS - 1).long())
+    loc, ok = pool_local_pages(g, 0, pages_local)
+    ok = ok & (pj < PPS)
+    b, j = torch.nonzero(ok, as_tuple=True)
+    return b, j, loc[b, j].long(), oj[b, j].long()
+
+
+def _paged_kv_write(cache, bt, qpos, k_new, v_new, targets=None):
+    """Write new KV rows [B, K1, Hkv, dh] through the block table into the
+    pool {k, v} [P_loc, psz, Hkv, dh], in place.  Valid (page, offset)
+    targets are unique (a slot's positions are distinct and live slots'
+    pages are disjoint), so the writes need no ordering."""
+    ck, cv = cache["k"], cache["v"]
+    if targets is None:
+        targets = paged_write_targets(bt, qpos, ck.shape[0], ck.shape[1])
+    b, j, loc, off = targets
+    ck[loc, off] = k_new[b, j].to(ck.dtype)
+    cv[loc, off] = v_new[b, j].to(cv.dtype)
+    return cache
+
+
+def _paged_kv_gather(cache, bt):
+    """Gather every slot's resident pages in position order.
+
+    Returns (k [B, PPS*psz, Hkv, dh], v likewise, valid [B, PPS*psz]):
+    entry i of the gathered sequence is absolute position i of the slot.
+    Every non-resident entry gathers LOCAL PAGE 0 — one fixed row for all
+    dead entries — and is masked by ``valid``.
+    """
+    ck, cv = cache["k"], cache["v"]
+    P_loc, psz, Hkv, dh = ck.shape
+    B, PPS = bt.shape
+    loc, ok = pool_local_pages(bt, 0, P_loc)
+    idx = torch.where(ok, loc, torch.zeros_like(loc)).long()
+    kg = ck[idx].reshape(B, PPS * psz, Hkv, dh)
+    vg = cv[idx].reshape(B, PPS * psz, Hkv, dh)
+    return kg, vg, torch.repeat_interleave(ok, psz, dim=1)
+
+
+def _combine_partials(o, lse, ctx: Context):
+    """Combine of a flash partial; coded wire when the codec is.  Mode
+    "none" is the plain fp LSE combine; every coded mode quantizes the
+    partial to the per-token int8 wire (the kernel epilogue's contract)
+    and combines through ``coded_combine_partials``."""
+    if ctx.codec.mode == "none":
+        return common.combine_decode_partials(o, lse)
+    wire, scale = boundary.quantize_partial(o)
+    return boundary.coded_combine_partials(wire, scale, lse, F32)
+
+
+def _paged_attn_combined(q, cache, bt, page_list, qpos, ctx: Context,
+                         window, cap):
+    """Paged attention partial + combine, both cache walks.
+
+    q [B, K1, Hq, dh]; qpos [B, K1].  ``page_list`` (the engine's
+    compacted per-shard lists ``(clp, clo)``, each [B, 1, ppc]; None on
+    the reference walk) selects the paged-decode kernel, with the int8
+    wire encode fused into its epilogue under a coded codec.  The
+    reference walk gathers the full block table and scores it with
+    ``verify_attention_partial``.  Returns [B, K1, Hq, dh] f32.
+    """
+    coded = ctx.codec.mode != "none"
+    if page_list is not None:
+        clp, clo = page_list
+        clp, clo = clp[:, 0], clo[:, 0]            # [B, ppc]
+        if coded:
+            wire, scale, lse = kops.paged_flash_decode(
+                q, cache["k"], cache["v"], clp, clo, qpos,
+                window=window, cap=cap, encode_wire=True)
+            return boundary.coded_combine_partials(wire, scale, lse, F32)
+        o, lse = kops.paged_flash_decode(q, cache["k"], cache["v"], clp,
+                                         clo, qpos, window=window, cap=cap)
+        return common.combine_decode_partials(o, lse)
+    k_s, v_s, kv_valid = _paged_kv_gather(cache, bt)
+    o, lse = common.verify_attention_partial(
+        q, k_s, v_s, pos=qpos, shard_offset=0, window=window, cap=cap,
+        kv_valid=kv_valid)
+    return _combine_partials(o, lse, ctx)
+
+
+# ---------------------------------------------------------------------------
+# forward: decode (one token per slot over the paged pool)
+# ---------------------------------------------------------------------------
+
+
+def attn_decode_fwd(p, x, cache, pos, ctx: Context, aux, kind="attn"):
+    """x [B, 1, D]; pos [B] per-slot positions; cache {k, v} [P_loc,
+    psz, Hkv, dh] — the pool — written through ``aux["block_table"]``.
+    ``aux["page_list"]`` selects the kernel walk; ``aux["kv_write"]``
+    may carry precomputed ``paged_write_targets``.  Returns (x', cache).
+    """
+    cfg = ctx.cfg
+    _check_mode(cfg)
+    d = attn_dims(cfg)
+    dh = d["dh"]
+    B = x.shape[0]
+    bt = aux.get("block_table")
+    if bt is None:
+        raise NotImplementedError(
+            "dense per-slot decode cache: the port decodes over the paged "
+            "pool only (pass aux['block_table'])")
+    h = common.norm(x, p["ln"], cfg.norm)
+    h = boundary.wire_roundtrip(h, p["sp_in"], ctx.codec)
+    q = h @ p["wq"]
+    k_new = h @ p["wk"]
+    v_new = h @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k_new = k_new + p["bk"]
+        v_new = v_new + p["bv"]
+    q = q.reshape(B, 1, d["Hq"], dh)
+    k_new = k_new.reshape(B, 1, d["Hkv"], dh)
+    v_new = v_new.reshape(B, 1, d["Hkv"], dh)
+    positions = pos[:, None]
+    q = _rope(cfg, q, positions)
+    k_new = _rope(cfg, k_new, positions)
+    cache = _paged_kv_write(cache, bt, positions, k_new, v_new,
+                            aux.get("kv_write"))
+    window = cfg.window if kind == "local" else 0
+    o = _paged_attn_combined(q, cache, bt, aux.get("page_list"), positions,
+                             ctx, window, cfg.attn_softcap)[:, 0]
+    part = o.reshape(B, 1, d["Hq"] * dh).to(x.dtype) @ p["wo"]
+    y = boundary.coded_psum(part, p["sp_out"], ctx.codec)
+    if cfg.post_norm:
+        y = common.norm(y, p["post_ln"], cfg.norm)
+    return x + y, cache

@@ -1,0 +1,153 @@
+"""Full model: embedding -> layer units -> LM head, at tp = 1.
+
+The port of ``repro.models.model`` for the ``("attn",)``-family
+patterns.  Parameters are a nested dict of tensors with the reference's
+structure: per-unit leaves carry a leading unit dim and the forward
+passes loop over units (the reference scans them).
+
+  forward_prefill : one right-padded prompt batch -> logits at the last
+                    (or ``last_pos``) position + the prompt's KV
+  forward_decode  : one token per slot over the serving engine's paged
+                    KV pool -> next-token logits (pool updated in place)
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import blocks_attn, common
+from .context import Context
+from .params import pdef, spike_pdefs, stack_defs
+
+F32 = torch.float32
+
+_ATTN_KINDS = ("attn", "global", "local")
+
+
+def _block_defs(cfg, kind):
+    if kind not in _ATTN_KINDS:
+        raise NotImplementedError(f"block kind {kind!r}: not ported yet")
+    return {**blocks_attn.attn_defs(cfg), **blocks_attn.mlp_defs(cfg)}
+
+
+def model_defs(cfg: ModelConfig, tp: int = 1):
+    if tp != 1:
+        raise NotImplementedError("the port builds tp=1 parameters only")
+    if cfg.is_encdec:
+        raise NotImplementedError("encoder-decoder models: not ported yet")
+    D = cfg.d_model
+    Vp = cfg.vocab_padded(tp)
+    defs: dict[str, Any] = {
+        "embed": pdef(Vp, D, tp=0, fsdp=1, init="embed"),
+        "final_ln": pdef(D, init="zeros"),
+        "sp_embed": spike_pdefs(D),
+        "sp_head": spike_pdefs(D),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = pdef(D, Vp, tp=1, fsdp=0)
+    unit = {f"pos{i}": _block_defs(cfg, kind)
+            for i, kind in enumerate(cfg.pattern)}
+    defs["units"] = stack_defs(unit, cfg.n_units)
+    return defs
+
+
+def unit_slice(tree, u: int):
+    """The per-unit view ``tree[...][u]`` of a unit-stacked tree."""
+    if isinstance(tree, dict):
+        return {k: unit_slice(v, u) for k, v in tree.items()}
+    return tree[u]
+
+
+def _head_w(p, cfg):
+    if cfg.tie_embeddings:
+        return p["embed"].T.to(cfg.dtype)
+    return p["lm_head"]
+
+
+def embed_tokens(p, tokens):
+    """tokens [...] -> embeddings [..., D] (vocab unsharded at tp=1)."""
+    return p["embed"][tokens.long()]
+
+
+def lm_logits_local(p, x, ctx: Context):
+    """x [B, S, D] -> logits [B, S, V] f32 (tp=1: no head boundary)."""
+    cfg = ctx.cfg
+    h = common.norm(x, p["final_ln"], cfg.norm)
+    return (h @ _head_w(p, cfg)).to(F32)
+
+
+def forward_prefill(params, tokens, ctx: Context, last_pos=None):
+    """Prefill a [B, S] right-padded token batch.
+
+    ``last_pos`` (optional [B] int tensor): per-sequence index of the
+    last real prompt token; defaults to the final position.  Returns
+    (logits [B, V] f32, caches ``{"posI": {"kv": {"k", "v"}}}`` with
+    leaves [U, B, S, Hkv, dh]).
+    """
+    cfg = ctx.cfg
+    ctx = ctx.with_(mode="prefill")
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    aux = {"positions": positions}
+    x = embed_tokens(params, tokens)
+    per_unit = []
+    for u in range(cfg.n_units):
+        unit_p = unit_slice(params["units"], u)
+        caches = {}
+        for i, kind in enumerate(cfg.pattern):
+            p = unit_p[f"pos{i}"]
+            x, kv = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
+            x = blocks_attn.mlp_fwd(p, x, ctx)
+            caches[f"pos{i}"] = {"kv": kv}
+        per_unit.append(caches)
+    caches = {
+        f"pos{i}": {"kv": {n: torch.stack([c[f"pos{i}"]["kv"][n]
+                                           for c in per_unit])
+                           for n in ("k", "v")}}
+        for i in range(len(cfg.pattern))}
+    last = common.norm(x, params["final_ln"], cfg.norm)
+    if last_pos is not None:
+        lidx = last_pos.long().reshape(-1).expand(B) % S
+        x_last = last[torch.arange(B, device=last.device), lidx]
+    else:
+        x_last = last[:, -1]
+    logits = (x_last @ _head_w(params, cfg)).to(F32)
+    if cfg.final_softcap:
+        logits = common.softcap(logits, cfg.final_softcap)
+    return logits, caches
+
+
+def forward_decode(params, cache, token, pos, ctx: Context, aux_extra=None):
+    """One decode step over the paged KV pool.
+
+    token [B] int; pos [B] per-slot positions; cache
+    ``{"posI": {"kv": {"k", "v"}}}`` pool leaves [U, P, psz, Hkv, dh];
+    ``aux_extra`` carries ``"block_table"`` [B, PPS] and, for the kernel
+    walk, ``"page_list"`` ``(clp, clo)`` [B, 1, ppc].  The new K/V rows
+    are written into the pool in place.  Returns (logits [B, V] f32,
+    cache).
+    """
+    cfg = ctx.cfg
+    ctx = ctx.with_(mode="decode")
+    aux = dict(aux_extra or {})
+    B = token.shape[0]
+    pos = pos.reshape(-1).expand(B)
+    x = embed_tokens(params, token)[:, None, :].to(cfg.dtype)
+    kv0 = cache["pos0"]["kv"]["k"]
+    aux["kv_write"] = blocks_attn.paged_write_targets(
+        aux["block_table"], pos[:, None], kv0.shape[1], kv0.shape[2])
+    for u in range(cfg.n_units):
+        unit_p = unit_slice(params["units"], u)
+        for i, kind in enumerate(cfg.pattern):
+            kv = cache[f"pos{i}"]["kv"]
+            kv_u = {"k": kv["k"][u], "v": kv["v"][u]}
+            x, _ = blocks_attn.attn_decode_fwd(unit_p[f"pos{i}"], x, kv_u,
+                                               pos, ctx, aux, kind=kind)
+            x = blocks_attn.mlp_fwd(unit_p[f"pos{i}"], x, ctx)
+    h = common.norm(x, params["final_ln"], cfg.norm)
+    logits = (h[:, 0] @ _head_w(params, cfg)).to(F32)
+    if cfg.final_softcap:
+        logits = common.softcap(logits, cfg.final_softcap)
+    return logits, cache

@@ -1,0 +1,114 @@
+"""The port's CUDA kernel and engine on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA device: a
+CUDA kernel has no CPU mode.  On the GPU machine run
+``python -m pytest -m gpu tests/test_torch_gpu.py``.  The file imports
+no JAX, so it collects where only PyTorch is installed.
+
+* The paged-decode kernel against its plain version on the same CUDA
+  inputs, for every conformance case, f32 and bf16 pools, with and
+  without the int8 wire epilogue (o and lse within 2e-5; the wire within
+  one quantization step).
+* The reduced model served on the card: kernel walk and reference walk
+  give the same greedy streams under the margin rule, and the kernel
+  ran once per layer per decode step.  In bfloat16 (the configs'
+  default dtype) the kernel walk serves with the same launch count and
+  frees every page; its streams are not compared, since bf16 rounding
+  ties flip argmax.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.cases import CASES, case_arrays, to_tensors  # noqa: E402
+from repro_torch.kernels.paged_decode import paged_decode_plain  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+MARGIN = 1e-4
+
+
+def _require_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_matches_plain_on_card(name, pool_dtype):
+    _require_cuda()
+    arrays, window, cap = case_arrays(name)
+    ts = to_tensors(arrays, "cuda", getattr(torch, pool_dtype))
+    o, lse = ops.paged_flash_decode(*ts, window=window, cap=cap)
+    po, plse = paged_decode_plain(*ts, window=window, cap=cap)
+    torch.testing.assert_close(o, po, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+    w, s, lse_w = ops.paged_flash_decode(*ts, window=window, cap=cap,
+                                         encode_wire=True)
+    pw, ps, _ = paged_decode_plain(*ts, window=window, cap=cap,
+                                   encode_wire=True)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=0.0)
+    assert torch.equal(lse_w, lse)
+    assert bool(((w.float() * s - pw.float() * ps).abs()
+                 <= ps + 1e-6).all())
+
+
+def test_engine_on_card_fused_matches_reference():
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = reduced(get_config("qwen1.5-0.5b")).replace(dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+    rng = np.random.RandomState(0)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab, L).tolist(),
+                    max_new_tokens=8)
+            for i, L in enumerate(rng.randint(1, 60, 6))]
+    runs = {}
+    for kernel in ("fused", "reference"):
+        ops.reset_launch_counts()
+        eng = ServingEngine(cfg, params, EngineConfig(
+            num_slots=3, max_seq=64, page_size=8, attn_kernel=kernel))
+        runs[kernel] = (eng.run(reqs), eng.margins)
+        launches = ops.launch_counts()["paged_decode"]
+        want = cfg.n_layers * eng.decode_steps if kernel == "fused" else 0
+        assert launches == want
+        assert eng.cache.allocator.pages_in_use == 0
+    (fused, _), (ref, margins) = runs["fused"], runs["reference"]
+    for rid in ref:
+        for t, (a, b) in enumerate(zip(ref[rid], fused[rid])):
+            if margins[rid][t] <= MARGIN:
+                break
+            assert a == b, (rid, t)
+
+
+def test_engine_on_card_bf16_serves():
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = reduced(get_config("qwen1.5-0.5b"))
+    assert cfg.dtype == torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+    rng = np.random.RandomState(1)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab, L).tolist(),
+                    max_new_tokens=6)
+            for i, L in enumerate(rng.randint(1, 60, 5))]
+    ops.reset_launch_counts()
+    eng = ServingEngine(cfg, params, EngineConfig(num_slots=2, max_seq=64,
+                                                  page_size=8))
+    out = eng.run(reqs)
+    assert ops.launch_counts()["paged_decode"] == (cfg.n_layers
+                                                   * eng.decode_steps) > 0
+    assert eng.cache.buffers["pos0"]["kv"]["k"].dtype == torch.bfloat16
+    assert eng.cache.allocator.pages_in_use == 0
+    for r in reqs:
+        assert len(out[r.rid]) == 6
+        assert all(0 <= t < cfg.vocab for t in out[r.rid])

@@ -1,0 +1,280 @@
+"""The port's model against the JAX reference's model-level steps.
+
+Reduced ``qwen1.5-0.5b`` in float32 with the JAX package's own init
+(``init_sharded_params`` on a 1x1 mesh, as ``benchmarks/serve_bench.py``
+builds it), carried across with ``params_from_jax``.  For ``ann``/codec
+``none`` and ``hnn``/``spike_fused``:
+
+* prefill logits and prompt KV of right-padded prompts (``last_pos``),
+* five teacher-forced decode steps over a shared paged pool holding
+  three slots of mixed lengths, through the kernel walk (compacted page
+  lists) and the reference walk (full block-table gather).
+
+The reference steps are ``M.forward_prefill``, ``kv_cache.make_insert_fn``
+and ``M.forward_decode`` under ``jax.shard_map`` on a 1x1 mesh, wrapped
+as the serving engine wraps them but returning logits.  Every input is
+made with numpy from a fixed seed and handed to each side as a fresh
+copy.  This module also holds the helpers ``test_torch_engine.py``
+shares: the JAX reference model and its solo greedy loop.
+
+Tolerance: logits agree within ``LOGIT_TOL`` = 1e-5 absolute, prompt
+KV within 1e-5.  Both sides compute in float32, but XLA and torch sum
+matmuls and softmaxes in different orders; the largest difference seen
+on these inputs is 2.4e-7, so the bound leaves 40x headroom for that
+reassociation.  It does not absorb a spike count landing on the other
+side of a rounding boundary (a 1/15 step in one channel), which the
+seeded inputs here do not produce.  Greedy tokens must be identical
+wherever the JAX top-1/top-2 margin exceeds ``MARGIN`` = 1e-4.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import PartitionSpec as P  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs.base import ShapeCell  # noqa: E402
+from repro.configs.reduced import reduced as jax_reduced  # noqa: E402
+from repro.launch import specs as SP  # noqa: E402
+from repro.launch import train as TR  # noqa: E402
+from repro.launch.mesh import make_mesh  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.serving import kv_cache as JKV  # noqa: E402
+
+from repro_torch.checkpoint.convert import params_from_jax  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.reduced import reduced  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.context import make_context  # noqa: E402
+from repro_torch.serving.kv_cache import PagedKVCache, SlotAllocator  # noqa: E402
+
+torch.set_num_threads(1)
+
+ARCH = "qwen1.5-0.5b"
+SLOTS, MAX_SEQ, PREFILL, PSZ = 3, 64, 32, 8
+NUM_PAGES = SLOTS * (MAX_SEQ // PSZ)
+LOGIT_TOL = 1e-5
+MARGIN = 1e-4
+CODECS = (("ann", "none"), ("hnn", "spike_fused"))
+
+
+class JaxModel:
+    """The JAX reference at one codec: params, the port's copy of them,
+    and the model-level prefill / insert / decode steps (jit-compiled
+    lazily, once per process)."""
+
+    def __init__(self, hnn, codec):
+        self.jcfg = jax_reduced(jax_get_config(ARCH, hnn_mode=hnn)).replace(
+            codec=codec, dtype=jnp.float32)
+        self.tcfg = reduced(get_config(ARCH, hnn_mode=hnn)).replace(
+            codec=codec, dtype=torch.float32)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        plan = SP.make_plan(self.jcfg, ShapeCell("serve_decode", MAX_SEQ,
+                                                 SLOTS, "decode"), mesh)
+        plan_pre = SP.make_plan(self.jcfg, ShapeCell("serve_admit", PREFILL,
+                                                     1, "prefill"), mesh)
+        self.params = TR.init_sharded_params(self.jcfg, plan, mesh,
+                                             jax.random.PRNGKey(0))
+        self.tparams = params_from_jax(jax.tree.map(np.asarray, self.params),
+                                       self.tcfg, device="cpu")
+        _, pspecs, _ = TR.shard_params_specs(self.jcfg, plan)
+        _, cspecs = SP.cache_specs(plan_pre)
+        ctx_pre = SP.make_context(plan_pre, "prefill")
+
+        def prefill(params, tokens, last_pos):
+            return JM.forward_prefill(params, {"tokens": tokens}, ctx_pre,
+                                      last_pos=last_pos)
+
+        self.prefill = jax.jit(jax.shard_map(
+            prefill, mesh=mesh, in_specs=(pspecs, P(None, "model"), P(None)),
+            out_specs=(P(None), cspecs), check_vma=False))
+        self.init_cache = JKV.make_init_fn(plan, mesh, PSZ, NUM_PAGES)
+        self.insert = JKV.make_insert_fn(plan, plan_pre, mesh, PSZ,
+                                         NUM_PAGES)
+        _, ispecs = SP.serve_decode_input_specs(plan, PSZ, NUM_PAGES)
+        ctx = SP.make_context(plan, "decode")
+        self.decode = {}
+        for kernel in ("fused", "reference"):
+            def step(params, cache, token, pos, bt, clp, clo,
+                     fused=kernel == "fused"):
+                aux = {"block_table": bt}
+                if fused:
+                    aux["page_list"] = (clp, clo)
+                return JM.forward_decode(params, cache, token, pos, ctx,
+                                         aux_extra=aux)
+            self.decode[kernel] = jax.jit(jax.shard_map(
+                step, mesh=mesh,
+                in_specs=(pspecs, ispecs["cache"], ispecs["token"],
+                          ispecs["pos"], ispecs["bt"], ispecs["clp"],
+                          ispecs["clo"]),
+                out_specs=(P("data", "model"), ispecs["cache"]),
+                check_vma=False))
+
+    def jax_prefill(self, prompt):
+        toks = np.zeros((1, PREFILL), np.int32)
+        toks[0, :len(prompt)] = prompt
+        logits, pre = self.prefill(self.params, jnp.array(toks),
+                                   jnp.array([len(prompt) - 1], jnp.int32))
+        return np.asarray(logits)[0], pre
+
+    def jax_decode(self, kernel, cache, token, pos, alloc):
+        logits, cache = self.decode[kernel](
+            self.params, cache, jnp.array(token, jnp.int32),
+            jnp.array(pos, jnp.int32), jnp.array(alloc.block_table),
+            jnp.array(alloc.page_list_loc), jnp.array(alloc.page_list_pos))
+        return np.asarray(logits), cache
+
+    def greedy_solo(self, prompt, max_new_tokens, eos_id=None,
+                    kernel="fused"):
+        """The reference greedy stream of one request alone, by the
+        model-level steps: (tokens, JAX top-1/top-2 margin per token)."""
+        alloc = JKV.SlotAllocator(SLOTS, MAX_SEQ, PSZ, num_pages=NUM_PAGES)
+        logits, pre = self.jax_prefill(prompt)
+        slot = alloc.alloc(len(prompt))
+        cache = self.insert(self.init_cache(), pre,
+                            jnp.asarray(slot, jnp.int32),
+                            jnp.asarray(alloc.block_table[slot]))
+        out, margins = [int(np.argmax(logits))], [margin(logits)]
+        while not (len(out) >= max_new_tokens
+                   or (eos_id is not None and out[-1] == eos_id)
+                   or len(prompt) + len(out) - 1 >= MAX_SEQ):
+            pos = len(prompt) + len(out) - 1
+            alloc.ensure(slot, pos + 1)
+            token = np.zeros(SLOTS, np.int32)
+            posv = np.zeros(SLOTS, np.int32)
+            token[slot], posv[slot] = out[-1], pos
+            logits, cache = self.jax_decode(kernel, cache, token, posv,
+                                            alloc)
+            out.append(int(np.argmax(logits[slot])))
+            margins.append(margin(logits[slot]))
+        return out, margins
+
+
+def margin(logits):
+    top = np.sort(np.asarray(logits, np.float64))[-2:]
+    return float(top[1] - top[0])
+
+
+def assert_greedy_agrees(ref_tokens, ref_margins, tokens):
+    """Streams agree token for token up to the first step whose JAX
+    margin is at most ``MARGIN``; past a near-tie the continuation is
+    not comparable."""
+    for t, (a, b, m) in enumerate(zip(ref_tokens, tokens, ref_margins)):
+        if m <= MARGIN:
+            return
+        assert a == b, (t, ref_tokens, tokens)
+    assert len(ref_tokens) == len(tokens), (ref_tokens, tokens)
+
+
+MODELS = {codec: JaxModel(hnn, codec) for hnn, codec in CODECS}
+
+
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("codec", [c for _, c in CODECS])
+def test_params_carry_across(codec):
+    jm = MODELS[codec]
+    flat = jax.tree_util.tree_flatten_with_path(jm.params)[0]
+    from repro_torch.checkpoint.convert import tree_paths
+    port = dict(tree_paths(jm.tparams))
+    assert sorted(port) == sorted(jax.tree_util.keystr(k) for k, _ in flat)
+    for k, v in flat:
+        np.testing.assert_array_equal(port[jax.tree_util.keystr(k)].numpy(),
+                                      np.asarray(v))
+
+
+def test_params_from_jax_rejects_bad_trees():
+    jm = MODELS["none"]
+    tree = jax.tree.map(np.asarray, jm.params)
+    bad = dict(tree, extra=np.zeros(3, np.float32))
+    with pytest.raises(KeyError):
+        params_from_jax(bad, jm.tcfg, device="cpu")
+    bad = {k: v for k, v in tree.items() if k != "final_ln"}
+    with pytest.raises(KeyError):
+        params_from_jax(bad, jm.tcfg, device="cpu")
+    bad = dict(tree, final_ln=np.zeros(7, np.float32))
+    with pytest.raises(ValueError):
+        params_from_jax(bad, jm.tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("codec", [c for _, c in CODECS])
+def test_prefill_logits_and_kv(codec):
+    jm = MODELS[codec]
+    rng = np.random.RandomState(11)
+    ctx = make_context(jm.tcfg)
+    for P_len in (1, 13, PREFILL):
+        prompt = rng.randint(0, jm.tcfg.vocab, P_len).astype(np.int32)
+        jl, jpre = jm.jax_prefill(prompt)
+        toks = np.zeros((1, PREFILL), np.int32)
+        toks[0, :P_len] = prompt
+        tl, tpre = TM.forward_prefill(jm.tparams, torch.tensor(toks), ctx,
+                                      last_pos=torch.tensor([P_len - 1]))
+        np.testing.assert_allclose(tl[0].numpy(), jl, atol=LOGIT_TOL,
+                                   rtol=0)
+        if margin(jl) > MARGIN:
+            assert int(np.argmax(jl)) == int(torch.argmax(tl[0]))
+        for n in ("k", "v"):
+            np.testing.assert_allclose(
+                tpre["pos0"]["kv"][n].numpy(),
+                np.asarray(jpre["pos0"]["kv"][n]), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("codec", [c for _, c in CODECS])
+def test_teacher_forced_paged_decode(codec):
+    """Three slots of mixed lengths share one pool; five decode steps
+    feed fixed tokens (teacher forcing) through both attention walks on
+    both sides."""
+    jm = MODELS[codec]
+    rng = np.random.RandomState(12)
+    ctx = make_context(jm.tcfg)
+    alloc = SlotAllocator(SLOTS, MAX_SEQ, PSZ, num_pages=NUM_PAGES)
+    jcache = {k: jm.init_cache() for k in ("fused", "reference")}
+    tcache = {k: PagedKVCache(jm.tcfg, num_slots=SLOTS, max_seq=MAX_SEQ,
+                              page_size=PSZ, num_pages=NUM_PAGES,
+                              device="cpu")
+              for k in ("fused", "reference")}
+    pos = np.zeros(SLOTS, np.int32)
+    for P_len in (5, 19, PREFILL):
+        prompt = rng.randint(0, jm.tcfg.vocab, P_len).astype(np.int32)
+        _, jpre = jm.jax_prefill(prompt)
+        toks = np.zeros((1, PREFILL), np.int32)
+        toks[0, :P_len] = prompt
+        _, tpre = TM.forward_prefill(jm.tparams, torch.tensor(toks), ctx,
+                                     last_pos=torch.tensor([P_len - 1]))
+        slot = alloc.alloc(P_len)
+        pos[slot] = P_len
+        for k in jcache:
+            jcache[k] = jm.insert(jcache[k], jpre,
+                                  jnp.asarray(slot, jnp.int32),
+                                  jnp.asarray(alloc.block_table[slot]))
+            tcache[k].insert(tpre, alloc.block_table[slot])
+    for _ in range(5):
+        for s in range(SLOTS):
+            alloc.ensure(s, int(pos[s]) + 1)
+        token = rng.randint(0, jm.tcfg.vocab, SLOTS).astype(np.int32)
+        for kernel in ("fused", "reference"):
+            jl, jcache[kernel] = jm.jax_decode(kernel, jcache[kernel], token,
+                                               pos, alloc)
+            aux = {"block_table": torch.tensor(alloc.block_table)}
+            if kernel == "fused":
+                aux["page_list"] = (torch.tensor(alloc.page_list_loc),
+                                    torch.tensor(alloc.page_list_pos))
+            tl, _ = TM.forward_decode(jm.tparams, tcache[kernel].buffers,
+                                      torch.tensor(token), torch.tensor(pos),
+                                      ctx, aux_extra=aux)
+            np.testing.assert_allclose(tl.numpy(), jl, atol=LOGIT_TOL,
+                                       rtol=0)
+            for s in range(SLOTS):
+                if margin(jl[s]) > MARGIN:
+                    assert int(np.argmax(jl[s])) == int(torch.argmax(tl[s]))
+        pos += 1
+    for kernel in jcache:
+        for n in ("k", "v"):
+            np.testing.assert_allclose(
+                tcache[kernel].buffers["pos0"]["kv"][n].numpy(),
+                np.asarray(jcache[kernel]["pos0"]["kv"][n]),
+                atol=1e-5, rtol=1e-5)
