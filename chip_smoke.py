@@ -9,27 +9,39 @@ on failure:
 2. build every CUDA kernel of the port from ``src/repro_torch/csrc`` with
    ``nvcc`` (one process per source, in parallel) into
    ``build/repro_torch/``;
-3. hold the paged-decode kernel against its plain PyTorch version on the
-   card: the six conformance cases of ``kernels/cases.py`` and the serve
-   shape (Hq = Hkv = 16, dh = 64, page 16, K1 = 1), with f32 and bf16
-   pools, with and without the int8 wire epilogue;
+3. hold each kernel against its plain PyTorch version on the card:
+   paged decode on the six conformance cases of ``kernels/cases.py`` and
+   the serve shape (Hq = Hkv = 16, dh = 64, page 16, K1 = 1), f32 and
+   bf16 pools, with and without the int8 wire epilogue (within 2e-5, the
+   wire within one int8 step); ``lif_encode``, ``pack4`` and ``unpack4``
+   on their conformance cases (every byte value among them) and at the
+   serve shapes [4, 1024], [120, 1024] and [256, 1024], exactly;
 4. serve the full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16
-   heads of 64, d_ff 2816, vocab 151936; HNN mode, ``spike_fused``
-   codec; float32 weights from the port's seeded init) through
-   ``ServingEngine``: eight requests of 16-120 prompt tokens and 32 new
-   tokens each on four slots.  The kernel walk's run is timed, must
-   launch the kernel 24 times per decode step and free every page.  The
-   reference walk and a second kernel-walk run (every launch checked
-   against the plain version on its live inputs) are traced at every
-   coded wire: their greedy streams must agree up to each request's
-   first coded value that rounds the other way — where the values it
-   rounds from must agree to float noise — or to a reference top-1/
-   top-2 logit margin of 1e-4.  In ANN mode (codec ``none``), where
-   nothing rounds on a wire, the two walks' streams must agree up to
-   the margin rule alone;
-5. time the kernel, its plain version and, as a yardstick only, PyTorch's
+   heads of 64, d_ff 2816, vocab 151936; HNN mode; float32 weights from
+   the port's seeded init) through ``ServingEngine``: eight requests of
+   16-120 prompt tokens and 32 new tokens each on four slots, once per
+   coded-boundary codec — ``spike_fused`` (the main path of the first
+   slice), then ``spike`` (the T-tick IF encoder, ``lif_encode`` at
+   every coded boundary), ``spike_pack4`` (``pack4`` before and
+   ``unpack4`` after every coded exchange) and ``sparse_topk``.  For
+   each codec the kernel walk's run is timed with every launch count set
+   to 0 just before it and read just after: paged decode must launch 24
+   times per decode step, ``lif_encode`` 4 x 24 times per decode step
+   and per prefill under ``spike``, ``pack4`` and ``unpack4`` 24 x (2
+   per decode step + 4 per prefill) under ``spike_pack4``, and every
+   page must be free at the end.  The reference walk (same boundary
+   kernel counts, no paged decode) and a second kernel-walk run (every
+   launch of every kernel checked against its plain version on its live
+   inputs) are traced at every coded wire: their greedy streams must
+   agree up to each request's first coded value that rounds the other
+   way — where the values it rounds from must agree to float noise — or
+   to a reference top-1/top-2 logit margin of 1e-4.  In ANN mode (codec
+   ``none``), where nothing rounds on a wire, the two walks' streams
+   must agree up to the margin rule alone;
+5. time each kernel, its plain version and its bound at the shapes the
+   serve path gives it (paged decode also against PyTorch's
    ``scaled_dot_product_attention`` on the gathered K/V of the same live
-   tokens, and print one ``kernels`` JSON line;
+   tokens, as a yardstick only), and print one ``kernels`` JSON line;
 6. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
@@ -37,6 +49,7 @@ prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -50,11 +63,25 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and f32 FLOP/s
-# outside the tensor cores — the paged-decode kernel's f32 math
+# outside the tensor cores — the paged-decode and lif_encode kernels' f32
+# math; the pack kernels' few integer operations per byte are set
+# against the same scalar rate (they stay far below the byte time)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 MARGIN = 1e-4
 N_LAYERS = 24
+#: the main path's codecs, in the order they are served
+CODECS = ("spike_fused", "spike", "spike_pack4", "sparse_topk")
+#: the boundary kernels of this slice, each with its plain version
+BOUNDARY_KERNELS = ("lif_encode", "pack4", "unpack4")
+REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:143",
+            "lif_encode": "src/repro/kernels/lif_encode.py:63",
+            "pack4": "src/repro/kernels/pack4.py:42",
+            "unpack4": "src/repro/kernels/pack4.py:59"}
+SOURCE = {"paged_decode": "src/repro_torch/csrc/paged_decode.cu",
+          "lif_encode": "src/repro_torch/csrc/lif_encode.cu",
+          "pack4": "src/repro_torch/csrc/pack4.cu",
+          "unpack4": "src/repro_torch/csrc/pack4.cu"}
 
 
 def card_line() -> str:
@@ -197,6 +224,42 @@ def time_kernel(arrays, cfg):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def boundary_bound(name, args, kw):
+    """(bound ms, bound_by) of one boundary-kernel call: each input byte
+    read once and each output byte written once over the HBM rate, or
+    the algorithm's operations over the f32 rate, whichever is larger."""
+    x = args[0]
+    n = x.numel()
+    if name == "lif_encode":
+        # x, theta and scale in, int8 counts out.  Ten ops per element
+        # for x/s, theta/s, the gate, the clip and the sign; then, only
+        # where this run's data opens the gate on a nonzero drive, one
+        # population's add, compare, reset and count per tick (the other
+        # population's drive is 0 and it never fires)
+        theta, scale = args[1], args[2]
+        xn = x.float() / scale
+        live = int(((xn.abs() - theta / scale >= 0) & (xn != 0)).sum())
+        nbytes = n * x.element_size() + 2 * x.shape[1] * 4 + n
+        flops = 10 * n + 4 * kw["T"] * live
+    elif name == "pack4":
+        nbytes, flops = n + n // 2, n          # a shift and an or a byte out
+    else:
+        nbytes, flops = 3 * n, 3 * n           # and, shift, and a byte in
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_boundary(name, args, kw, flush):
+    """(kernel ms, plain ms, bound ms, bound_by) of one boundary kernel on
+    the given (live) inputs."""
+    module, attr, plain = _boundary_fns()[name]
+    ms = cuda_ms(lambda: getattr(module, attr)(*args, **kw), flush)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), flush)
+    return (ms, plain_ms) + boundary_bound(name, args, kw)
+
+
 class _Patch:
     """Replace ``module.name`` by ``fn(original, *args, **kw)`` while
     active."""
@@ -213,25 +276,98 @@ class _Patch:
         setattr(self.module, self.name, self.orig)
 
 
+def _boundary_fns():
+    """Kernel name -> (module, CUDA launch attribute, plain version)."""
+    from repro_torch.kernels import lif_encode as LE
+    from repro_torch.kernels import pack4 as PK
+    return {"lif_encode": (LE, "lif_encode_cuda", LE.lif_encode_plain),
+            "pack4": (PK, "pack4_cuda", PK.pack4_plain),
+            "unpack4": (PK, "unpack4_cuda", PK.unpack4_plain)}
+
+
+def check_exact(name, *args, **kw):
+    """One launch of a boundary kernel against its plain version on the
+    same CUDA inputs; they must be equal.  Returns the largest absolute
+    difference (0)."""
+    module, attr, plain = _boundary_fns()[name]
+    got = getattr(module, attr)(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel differs from its plain version "
+                             f"on inputs of shape {tuple(args[0].shape)}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_boundary_kernels():
+    """Every conformance case of ``lif_encode``, ``pack4`` and ``unpack4``,
+    and random inputs at the serve shapes, kernel == plain on the card.
+    Returns {kernel: largest abs difference}."""
+    from repro_torch.kernels.cases import (LIF_CASES, PACK4_CASES,
+                                           lif_tensors, pack4_case)
+    err = dict.fromkeys(BOUNDARY_KERNELS, 0.0)
+    for name in LIF_CASES:
+        x, theta, scale, T = lif_tensors(name, "cuda")
+        err["lif_encode"] = max(err["lif_encode"], check_exact(
+            "lif_encode", x, theta, scale, T=T))
+    for name in PACK4_CASES:
+        v = torch.tensor(pack4_case(name), device="cuda")
+        err["pack4"] = max(err["pack4"], check_exact("pack4", v))
+        err["unpack4"] = max(err["unpack4"], check_exact("unpack4", v))
+    rng = np.random.RandomState(11)
+    for M in (4, 120, 256):
+        C = 1024
+        t = lambda a: torch.tensor(a, device="cuda")  # noqa: E731
+        x = t(rng.standard_normal((M, C)).astype(np.float32))
+        theta = t(rng.uniform(0.0, 0.3, C).astype(np.float32))
+        scale = t(np.exp(rng.uniform(-1.0, 1.0, C)).astype(np.float32))
+        for T in (15, 7):
+            err["lif_encode"] = max(err["lif_encode"], check_exact(
+                "lif_encode", x, theta, scale, T=T))
+        wire = t(rng.randint(0, 15, (M, C)).astype(np.uint8))
+        packed = t(rng.randint(0, 256, (M, C // 2)).astype(np.uint8))
+        err["pack4"] = max(err["pack4"], check_exact("pack4", wire))
+        err["unpack4"] = max(err["unpack4"], check_exact("unpack4", packed))
+    return err
+
+
 class LaunchCheck:
-    """Check every paged-decode launch of a kernel-walk engine run
-    against the plain version on the same (live) inputs: o and lse, or
-    the wire scale and lse, within float rounding, and the int8 wire
-    within one step."""
+    """Check every kernel launch of a kernel-walk engine run against the
+    plain version on the same (live) inputs.  Paged decode: o and lse,
+    or the wire scale and lse, within float rounding, and the int8 wire
+    within one step.  Boundary kernels: exactly equal.  Keeps the first
+    live inputs of each kernel at each shape (for timing)."""
 
     def __init__(self):
-        self.launches = 0
+        self.launches = collections.Counter()
         self.flipped = 0         # wire values one step from the plain one
+        self.samples = {}        # (kernel, input shape) -> (args, kw)
 
     def patches(self):
         from repro_torch.kernels import paged_decode as PD
-        return [_Patch(PD, "paged_decode_cuda", self._launch)]
+        out = [_Patch(PD, "paged_decode_cuda", self._paged)]
+        for name, (module, attr, plain) in _boundary_fns().items():
+            out.append(_Patch(module, attr, self._exact(name, plain)))
+        return out
 
-    def _launch(self, orig, *args, **kw):
+    def _exact(self, name, plain):
+        def launch(orig, *args, **kw):
+            out = orig(*args, **kw)
+            if not torch.equal(out, plain(*args, **kw)):
+                raise AssertionError(f"{name}: a live launch differs from "
+                                     "the plain version")
+            self.launches[name] += 1
+            key = (name, tuple(args[0].shape))
+            if key not in self.samples:
+                self.samples[key] = ([a.clone() for a in args], kw)
+            return out
+        return launch
+
+    def _paged(self, orig, *args, **kw):
         from repro_torch.kernels.paged_decode import paged_decode_plain
         out = orig(*args, **kw)
         plain = paged_decode_plain(*args, **kw)
-        self.launches += 1
+        self.launches["paged_decode"] += 1
         if kw.get("encode_wire"):
             (w, s, lse), (pw, ps, plse) = out, plain
             torch.testing.assert_close(s, ps, rtol=1e-5, atol=0.0)
@@ -286,10 +422,11 @@ def first_rounding_splits(tr_f, tr_r):
     such first difference is a rounding split: the values rounded from
     agree to float noise (spike counts: within 1e-4 of the row's
     magnitude) or one int8 step (attention partial).  Returns (rid ->
-    token index, largest relative gap seen at a split)."""
+    token index, wire kind -> [requests split there first, largest
+    relative gap seen at those splits])."""
     if len(tr_f.events) != len(tr_r.events):
         raise AssertionError("the traced runs took different schedules")
-    cut, worst = {}, 0.0
+    cut, splits = {}, {}
     for (kind, pre_f, w_f, prog), (kind_r, pre_r, w_r, prog_r) in zip(
             tr_f.events, tr_r.events):
         if kind != kind_r or prog != prog_r:
@@ -307,8 +444,9 @@ def first_rounding_splits(tr_f, tr_r):
                 raise AssertionError(
                     f"request {rid} token {t}: {kind} differ with values "
                     f"{gap:.3g} apart — not a rounding split")
-            worst = max(worst, gap if kind == "spike counts" else 0.0)
-    return cut, worst
+            n, worst = splits.get(kind, (0, 0.0))
+            splits[kind] = [n + 1, max(worst, gap)]
+    return cut, splits
 
 
 def serve(cfg, params, requests, kernel, device="cuda", hooks=()):
@@ -378,6 +516,89 @@ def check_streams(fused, ref, ref_margins, cut=None):
     return compared, by_split, by_margin
 
 
+def expected_launches(codec, walk, eng):
+    """Launches of each kernel in one engine run: paged decode once per
+    layer and decode step on the kernel walk; ``lif_encode`` at each of a
+    layer's 4 coded boundaries per decode step (2 wire roundtrips, 2
+    coded psums) and per prefill (2 coded gathers, 2 coded reduce-
+    scatters) under ``spike``; ``pack4`` and ``unpack4`` once per coded
+    exchange under ``spike_pack4``: 2 per layer and decode step (the
+    coded psums; a wire roundtrip exchanges nothing) and 4 per prefill."""
+    steps, pre = eng.decode_steps, eng.prefills
+    want = {"paged_decode": N_LAYERS * steps if walk == "fused" else 0,
+            "lif_encode": 0, "pack4": 0, "unpack4": 0}
+    if codec == "spike":
+        want["lif_encode"] = 4 * N_LAYERS * (steps + pre)
+    if codec == "spike_pack4":
+        want["pack4"] = want["unpack4"] = N_LAYERS * (2 * steps + 4 * pre)
+    return want
+
+
+def serve_codec(cfg, params, requests, codec):
+    """One codec's main path: the kernel-walk run, timed, with every
+    launch count set to 0 just before it and read just after; then the
+    reference walk and the kernel walk again, traced at every wire, the
+    kernel walk with each launch checked on its live inputs.  Returns
+    (launch counts of the timed run, the ``LaunchCheck``, tokens/s,
+    median decode step ms)."""
+    from repro_torch.kernels import ops
+    cfg_c = cfg.replace(codec=codec)
+    ops.reset_launch_counts()
+    fused, _, eng, secs, steps = serve(cfg_c, params, requests, "fused")
+    launches = ops.launch_counts()
+    want = expected_launches(codec, "fused", eng)
+    if launches != want or eng.decode_steps == 0:
+        raise AssertionError(f"{codec}: launches {launches}, expected {want} "
+                             f"for {eng.decode_steps} decode steps and "
+                             f"{eng.prefills} prefills")
+    for rid, (prompt, new) in enumerate(requests):
+        toks = fused[rid]
+        if len(toks) != new or not all(0 <= x < cfg.vocab for x in toks):
+            raise AssertionError(f"{codec} request {rid}: bad stream {toks}")
+    n_tok = sum(len(v) for v in fused.values())
+    tok_s, step_ms = n_tok / secs, 1e3 * float(np.median(steps))
+    print(f"serve hnn/{codec} fused: {n_tok} tokens in {secs:.3f} s = "
+          f"{tok_s:.1f} tok/s, {eng.decode_steps} decode steps, "
+          f"{eng.prefills} prefills, median decode step {step_ms:.3f} ms, "
+          f"launches {launches}", flush=True)
+
+    ops.reset_launch_counts()
+    tr_r = WireTrace(4)
+    ref, ref_margins, eng_r, secs_r, steps_r = serve(
+        cfg_c, params, requests, "reference", hooks=(tr_r,))
+    if ops.launch_counts() != expected_launches(codec, "reference", eng_r):
+        raise AssertionError(f"{codec} reference walk: launches "
+                             f"{ops.launch_counts()}")
+    print(f"serve hnn/{codec} reference (traced): {n_tok / secs_r:.1f} "
+          f"tok/s, median decode step {1e3 * np.median(steps_r):.3f} ms",
+          flush=True)
+    tr_f, check = WireTrace(4), LaunchCheck()
+    traced, _, eng_t, *_ = serve(cfg_c, params, requests, "fused",
+                                 hooks=(tr_f, check))
+    if traced != fused:
+        raise AssertionError(f"{codec}: two kernel-walk runs gave different "
+                             "streams")
+    want_t = expected_launches(codec, "fused", eng_t)
+    if {k: check.launches[k] for k in want_t} != want_t:
+        raise AssertionError(f"{codec}: checked launches {check.launches}, "
+                             f"expected {want_t}")
+    cut, splits = first_rounding_splits(tr_f, tr_r)
+    first = ", ".join(f"{n} at {kind} (values rounded from within "
+                      f"{gap:.2g} of each other)"
+                      for kind, (n, gap) in sorted(splits.items()))
+    compared, by_split, by_margin = check_streams(fused, ref, ref_margins,
+                                                  cut)
+    print(f"streams hnn/{codec}: launches checked on live inputs "
+          f"{dict(check.launches)} ({check.flipped} paged-decode wire values "
+          f"one step from the plain version's, every boundary-kernel launch "
+          f"exact); fused == reference on {compared} of {n_tok} tokens: "
+          f"{by_split} requests compared up to the first coded value that "
+          f"rounded the other way [{first}], {by_margin} up to a margin <= "
+          f"{MARGIN}",
+          flush=True)
+    return launches, check, tok_s, step_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -391,7 +612,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
     from repro_torch.kernels.cases import CASES, case_arrays
     from repro_torch.models.model import model_defs
     from repro_torch.models.params import init_params
@@ -434,51 +655,21 @@ def main() -> int:
         print(f"check paged_decode serve_shape {str(dt)[6:]}: max abs err "
               f"{e:.3g}", flush=True)
 
+    errs = check_boundary_kernels()
+    for name in BOUNDARY_KERNELS:
+        print(f"check {name}: conformance cases and serve shapes exact "
+              f"(max abs err {errs[name]:.3g})", flush=True)
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
 
-    # main path: HNN / spike_fused, kernel walk — timed and counted
-    ops.reset_launch_counts()
-    fused, _, eng_f, secs, steps = serve(cfg, params, requests, "fused")
-    launches = ops.launch_counts()["paged_decode"]
-    if launches != N_LAYERS * eng_f.decode_steps or launches == 0:
-        raise AssertionError(f"kernel launched {launches} times for "
-                             f"{eng_f.decode_steps} decode steps")
-    for rid, (prompt, new) in enumerate(requests):
-        toks = fused[rid]
-        if len(toks) != new or not all(0 <= x < cfg.vocab for x in toks):
-            raise AssertionError(f"request {rid}: bad stream {toks}")
-    n_tok = sum(len(v) for v in fused.values())
-    print(f"serve hnn/spike_fused fused: {n_tok} tokens in {secs:.3f} s = "
-          f"{n_tok / secs:.1f} tok/s, {eng_f.decode_steps} decode steps, "
-          f"median decode step {1e3 * np.median(steps):.3f} ms, "
-          f"{launches} kernel launches", flush=True)
+    # warm-up (library handles, the caching allocator, first launches),
+    # outside every timed and counted run
+    serve(cfg, params, [(p, 4) for p, _ in requests[:2]], "fused")
 
-    # the reference walk and the kernel walk again, both traced at every
-    # wire, the kernel walk with each launch checked on its live inputs
-    ops.reset_launch_counts()
-    tr_r = WireTrace(4)
-    ref, ref_margins, _, secs_r, steps_r = serve(
-        cfg, params, requests, "reference", hooks=(tr_r,))
-    if ops.launch_counts()["paged_decode"] != 0:
-        raise AssertionError("the reference walk launched the kernel")
-    print(f"serve hnn/spike_fused reference (traced): "
-          f"{n_tok / secs_r:.1f} tok/s, median decode step "
-          f"{1e3 * np.median(steps_r):.3f} ms", flush=True)
-    tr_f, check = WireTrace(4), LaunchCheck()
-    traced, *_ = serve(cfg, params, requests, "fused", hooks=(tr_f, check))
-    if traced != fused:
-        raise AssertionError("two kernel-walk runs gave different streams")
-    cut, worst = first_rounding_splits(tr_f, tr_r)
-    compared, by_split, by_margin = check_streams(fused, ref, ref_margins,
-                                                  cut)
-    print(f"streams hnn/spike_fused: {check.launches} kernel launches "
-          f"checked on live inputs ({check.flipped} wire values one step "
-          f"from the plain version's); fused == reference on {compared} "
-          f"of {n_tok} tokens: {by_split} requests compared up to the "
-          f"first coded value that rounded the other way (values rounded "
-          f"from within {worst:.2g} of each other), {by_margin} up to a "
-          f"margin <= {MARGIN}", flush=True)
+    # every codec of the coded boundary: the main path of each
+    runs = {codec: serve_codec(cfg, params, requests, codec)
+            for codec in CODECS[:1]}
 
     # ANN mode (codec none): nothing rounds on a wire, so the streams
     # must agree wherever the margin allows
@@ -487,22 +678,56 @@ def main() -> int:
     fused_a, *_ = serve(cfg_ann, params, requests, "fused", hooks=(check,))
     ref_a, ref_margins_a, *_ = serve(cfg_ann, params, requests, "reference")
     compared_a, _, by_margin_a = check_streams(fused_a, ref_a, ref_margins_a)
-    print(f"streams ann/none: {check.launches} kernel launches checked; "
-          f"fused == reference on {compared_a} of {n_tok} tokens "
-          f"({by_margin_a} requests compared up to a margin <= {MARGIN})",
-          flush=True)
+    n_tok = sum(len(v) for v in fused_a.values())
+    print(f"streams ann/none: {check.launches['paged_decode']} kernel "
+          f"launches checked; fused == reference on {compared_a} of {n_tok} "
+          f"tokens ({by_margin_a} requests compared up to a margin <= "
+          f"{MARGIN})", flush=True)
+
+    runs.update((codec, serve_codec(cfg, params, requests, codec))
+                for codec in CODECS[1:])
+    print(json.dumps({"serve": {codec: {"tok_s": r[2], "median_step_ms": r[3]}
+                                for codec, r in runs.items()}}), flush=True)
 
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_kernel(s_case, cfg)
     print(f"paged_decode at the serve shape: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
           f"({bound_by})", flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "paged_decode", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_decode.cu",
-        "replaces": "src/repro/kernels/paged_decode.py:143",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms}]}))
+        "source": SOURCE["paged_decode"], "replaces": REPLACES["paged_decode"],
+        "launches": runs["spike_fused"][0]["paged_decode"],
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}]
+
+    # boundary kernels on the live inputs of their codec's checked run,
+    # at each shape the path gave them (decode rows first)
+    flush = torch.empty(96 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    home = {"lif_encode": "spike", "pack4": "spike_pack4",
+            "unpack4": "spike_pack4"}
+    for name in BOUNDARY_KERNELS:
+        launches, check = runs[home[name]][:2]
+        shapes = sorted(shape for k, shape in check.samples if k == name)
+        if len(shapes) != 2:
+            raise AssertionError(f"{name}: live shapes {shapes}, expected "
+                                 "one decode and one prefill shape")
+        by_shape = []
+        for shape in shapes:
+            args, kw = check.samples[name, shape]
+            k_ms, p_ms, b_ms, b_by = time_boundary(name, args, kw, flush)
+            by_shape.append({"shape": list(shape), "ms": k_ms,
+                             "plain_ms": p_ms, "bound_ms": b_ms,
+                             "bound_by": b_by})
+            print(f"{name} at {list(shape)}: kernel {k_ms:.5f} ms, plain "
+                  f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], **{k: v for k, v in by_shape[0].items()
+                                           if k != "shape"},
+            "library_ms": None, "shape": by_shape[0]["shape"],
+            "by_shape": by_shape})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,11 +8,17 @@ here runs its encode -> wire -> decode through a size-1 "gather" (a
 leading axis of length 1), so the codec's numerics — and therefore the
 served tokens — are the reference's at tp=1.
 
-Modes ported: ``none``, ``int8`` and ``spike_fused``.  Any other mode,
-and any world size above 1, raises ``NotImplementedError``.  Gradients
-use the autograd of the local encode/decode (straight-through rounding
-and the surrogate gate from ``core.spike``), which is what the
-reference's custom VJPs compute at one shard.
+All six modes are ported: ``none``, ``int8``, ``spike`` (the T-tick
+IF encoder, through the ``lif_encode`` kernel when serving),
+``spike_fused`` (the closed form), ``spike_pack4`` (closed form at T=7,
+two counts per byte through the ``pack4``/``unpack4`` kernels) and
+``sparse_topk`` (the top fraction of counts per token as (index, count)
+pairs on the gather; dense counts elsewhere, as in the reference).  A
+world size above 1 raises ``NotImplementedError``.  Gradients use the
+autograd of the local encode/decode (straight-through rounding and the
+surrogate gate from ``core.spike``), which is what the reference's
+custom VJPs compute at one shard; the ``sparse_topk`` gather, whose VJP
+is not ported, raises when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ import torch
 from . import spike
 from .spike import SpikeConfig
 
-_MODES = ("none", "int8", "spike_fused")
+_MODES = ("none", "int8", "spike", "spike_fused", "spike_pack4",
+          "sparse_topk")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,12 +42,23 @@ class BoundaryCodec:
     capacity: float = 0.125        # sparse_topk capacity fraction
     bwd_mode: str = "none"         # compress backward wire too ("int8"|"none")
 
+    def wire_bits(self) -> float:
+        """Bits per boundary element on the wire (for roofline bookkeeping)."""
+        if self.mode == "none":
+            return 16.0
+        if self.mode in ("int8", "spike", "spike_fused"):
+            return 8.0
+        if self.mode == "spike_pack4":
+            return 4.0
+        if self.mode == "sparse_topk":
+            return self.capacity * (8 + 32)
+        raise ValueError(self.mode)
+
 
 def _check(codec: BoundaryCodec, world_size: int = 1):
     if codec.mode not in _MODES:
-        raise NotImplementedError(
-            f"boundary mode {codec.mode!r}: not ported yet (ported: "
-            f"{', '.join(_MODES)})")
+        raise ValueError(f"boundary mode {codec.mode!r}: expected one of "
+                         f"{', '.join(_MODES)}")
     if world_size != 1:
         raise NotImplementedError(
             f"coded collectives over {world_size} ranks: the port runs "
@@ -62,6 +80,10 @@ def _encode_local(x, params, codec: BoundaryCodec):
         wire = torch.round(x / s).to(torch.int8)
         return wire, s, None
     counts = spike.encode(x, params, codec.cfg)      # float in {-T..T}
+    if codec.mode == "spike_pack4":
+        # {0..14} fits 4 bits: two counts per byte
+        wire = spike.pack4(spike.counts_to_wire_u8(counts, codec.cfg.T))
+        return wire, None, counts
     return counts.to(torch.int8), None, counts
 
 
@@ -70,7 +92,11 @@ def _decode_local(wire, params, codec: BoundaryCodec, scale_i8, dtype):
     # exactly representable in bf16
     if codec.mode == "int8":
         return (wire.to(torch.float32) * scale_i8).to(dtype)
-    counts = wire.to(dtype)
+    if codec.mode == "spike_pack4":
+        counts = spike.wire_u8_to_counts(spike.unpack4(wire), codec.cfg.T,
+                                         dtype)
+    else:
+        counts = wire.to(dtype)
     return spike.decode(counts, params, codec.cfg, dtype)
 
 
@@ -86,6 +112,56 @@ def _local_roundtrip(x, params, codec: BoundaryCodec):
 
 
 # ---------------------------------------------------------------------------
+# sparse_topk: the top fraction of |count| per token
+# ---------------------------------------------------------------------------
+
+
+def _topk_k(C: int, capacity: float) -> int:
+    return min(max(8, int(C * capacity)), C)
+
+
+def topk_wire(counts, k: int):
+    """The (index, count) packets of ``sparse_topk``'s gather: the k
+    channels of largest ``|count|`` per token, ``(idx int64 [..., k],
+    vals int8 [..., k])``.  Ties at the k-th magnitude are the rule (the
+    magnitudes are integers in {0..T}), and ``lax.top_k`` keeps the lower
+    index among equals; a stable descending sort does the same, where
+    ``torch.topk`` promises no order among ties."""
+    idx = torch.sort(torch.abs(counts), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return idx, torch.gather(counts, -1, idx).to(torch.int8)
+
+
+def _topk_local(x, params, codec: BoundaryCodec):
+    """Local view of the top-k wire: every channel whose |count| reaches
+    the k-th largest is kept (ties kept, so no tie-breaking)."""
+    C = x.shape[-1]
+    k = _topk_k(C, codec.capacity)
+    c = spike.encode(x, params, codec.cfg)
+    mag = torch.abs(c).detach()
+    thresh = torch.sort(mag, dim=-1).values[..., C - k:C - k + 1]
+    mask = (mag >= thresh).to(c.dtype)
+    return spike.decode(c * mask, params, codec.cfg, x.dtype)
+
+
+def _topk_all_gather(x, params, codec: BoundaryCodec):
+    """Gather over one rank of the top-k (index, count) packets: encode,
+    select, scatter the counts back into a dense zero row and decode.
+    Its gradient (the reference's custom VJP) is not ported: with a
+    gradient wanted it raises."""
+    if spike.needs_grad(x, params["theta"], params["log_scale"]):
+        raise NotImplementedError(
+            "gradients through the sparse_topk gather: not ported "
+            "(training is not ported)")
+    counts = spike.encode(x, params, codec.cfg)
+    idx, vals = topk_wire(counts.detach(), _topk_k(x.shape[-1],
+                                                   codec.capacity))
+    dense = torch.zeros(counts.shape, dtype=torch.float32, device=x.device)
+    dense.scatter_(-1, idx, vals.to(torch.float32))
+    return spike.decode(dense, params, codec.cfg, x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # train/prefill boundaries: gather-in and reduce-scatter-out of a layer
 # ---------------------------------------------------------------------------
 
@@ -97,6 +173,8 @@ def coded_all_gather(x, params, codec: BoundaryCodec, axis: int = 0,
     _check(codec, world_size)
     if codec.mode == "none":
         return x
+    if codec.mode == "sparse_topk":
+        return _topk_all_gather(x, params, codec)
     wire, s8, _ = _encode_local(x, params, codec)
     return _decode_local(wire, params, codec, s8, x.dtype)
 
@@ -133,6 +211,8 @@ def wire_roundtrip(x, params, codec: BoundaryCodec):
         s = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True),
                         min=1e-6) / 127.0
         return (spike.round_ste(x / s) * s).to(x.dtype)
+    if codec.mode == "sparse_topk":
+        return _topk_local(x, params, codec)
     return _local_roundtrip(x, params, codec)
 
 
@@ -142,7 +222,8 @@ def coded_psum(x, params, codec: BoundaryCodec, world_size: int = 1):
     Each rank encodes its partial, the wire is gathered (here: a
     leading axis of length 1), and every rank decodes and sums — so at
     tp=1 the codec's rounding still applies, exactly as in the
-    reference."""
+    reference.  ``sparse_topk`` sends dense counts here (decode tensors
+    are [B, 1, D]-tiny), as in the reference."""
     _check(codec, world_size)
     if codec.mode == "none":
         return x

@@ -1,24 +1,37 @@
 """Spike-based encoding core (paper §3.5, eqs 1-3, 10) in PyTorch.
 
-The port of ``repro.core.spike`` for the closed-form ("fused") signed
-rate code the serving path uses at every coded boundary:
+The port of ``repro.core.spike`` for the encoders the coded boundaries
+run:
 
 * ``spike_step`` — Heaviside with the fast-sigmoid surrogate gradient,
 * ``round_ste`` — round half to even with a straight-through gradient,
-* ``rate_encode_signed`` / ``rate_decode_signed`` — activation -> signed
-  spike count in {-T..T} and back,
+* ``rate_encode_signed`` / ``rate_decode_signed`` — the closed-form
+  ("fused") signed rate code: activation -> spike count in {-T..T} and
+  back,
+* ``if_rate_encode`` / ``lif_rate_encode_signed`` — the paper-faithful
+  T-tick integrate-and-fire encoder (on/off populations), with the
+  surrogate gradient inside the tick loop,
+* the wire helpers ``counts_to_wire_u8`` / ``wire_u8_to_counts`` and the
+  4-bit two-per-byte ``pack4`` / ``unpack4``,
 * ``encode`` / ``decode`` over one boundary's learnable params.
 
 Rounding is ``torch.round`` (half to even), exactly as ``jnp.round``,
-so the counts on the wire equal the reference's bit for bit.  The
-faithful T-tick IF encoder (``SpikeConfig.faithful``) is not ported in
-this slice and raises.
+so the counts on the wire equal the reference's bit for bit.  The IF
+encoder is not the closed form: at a drive within rounding of a
+half-integer tick count the two can differ by one, and ``encode`` with
+``SpikeConfig(faithful=True)`` follows the IF encoder, as the reference
+does.  Without gradients (serving) that branch runs the ``lif_encode``
+kernel through ``kernels.ops``, and ``pack4`` / ``unpack4`` run theirs;
+on CPU tensors each runs its kernel's plain version.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ..kernels import ops as kops
+from ..kernels.lif_encode import if_count
 
 # ---------------------------------------------------------------------------
 # Surrogate gradients
@@ -80,6 +93,57 @@ def rate_decode_signed(counts, scale, T: int):
     return counts.to(scale.dtype) * (scale / T)
 
 
+def if_rate_encode(drive, T: int):
+    """Paper-faithful CLP rate coder (Fig 4a): an integrate-and-fire
+    accumulator from a membrane of 0.5 adds ``drive`` in [0, 1] each of
+    T ticks and fires at >= 1 with subtract reset.  Returns float counts
+    in {0..T}; the spike is ``spike_step``, so surrogate gradients
+    flow.  The tick loop is the ``lif_encode`` kernel's plain one."""
+    return if_count(drive, T, step=spike_step)
+
+
+def lif_rate_encode_signed(x, theta, T: int):
+    """Paper-faithful signed encoder: two IF populations (on/off cells)
+    fed by the positive and the negative part of the pre-normalised
+    drive ``x`` (= activation / scale); the count difference is gated
+    to 0 below the learnable threshold ``theta`` (normalised too)."""
+    gate = spike_step(torch.abs(x) - theta, 10.0)
+    c_pos = if_rate_encode(torch.clamp(x, 0.0, 1.0), T)
+    c_neg = if_rate_encode(torch.clamp(-x, 0.0, 1.0), T)
+    return (c_pos - c_neg) * gate
+
+
+# ---------------------------------------------------------------------------
+# Wire packing: counts {-T..T} -> uint8 (bias T) and 4-bit two-per-byte
+# ---------------------------------------------------------------------------
+
+
+def counts_to_wire_u8(counts, T: int):
+    """Signed counts -> biased uint8 (value + T).  Needs 2T+1 <= 256."""
+    return (counts + T).to(torch.uint8)
+
+
+def wire_u8_to_counts(wire, T: int, dtype=torch.float32):
+    return wire.to(dtype) - T
+
+
+def pack4(wire):
+    """Pack uint8 values < 16 two per byte along the last axis (even):
+    ``out[..., k] = v[2k] | v[2k+1] << 4``.  Runs the ``pack4`` kernel
+    on a CUDA tensor."""
+    C = wire.shape[-1]
+    out = kops.pack4(wire.reshape(-1, C))
+    return out.reshape(*wire.shape[:-1], C // 2)
+
+
+def unpack4(packed):
+    """The inverse of ``pack4``; runs the ``unpack4`` kernel on a CUDA
+    tensor."""
+    C2 = packed.shape[-1]
+    out = kops.unpack4(packed.reshape(-1, C2))
+    return out.reshape(*packed.shape[:-1], 2 * C2)
+
+
 # ---------------------------------------------------------------------------
 # Boundary parameter container + init
 # ---------------------------------------------------------------------------
@@ -90,7 +154,7 @@ class SpikeConfig:
     """Static config for one spike boundary."""
 
     T: int = 15                # ticks; 15 -> signed counts fit 5 bits
-    faithful: bool = False     # True: T-tick IF train (not ported yet)
+    faithful: bool = False     # True: T-tick IF encoder; False: closed form
 
 
 def init_spike_params(dim: int, *, device, dtype=torch.float32) -> dict:
@@ -101,14 +165,38 @@ def init_spike_params(dim: int, *, device, dtype=torch.float32) -> dict:
     }
 
 
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def encode(x, params: dict, cfg: SpikeConfig):
-    """Activation -> signed float counts in {-T..T}. Differentiable."""
-    if cfg.faithful:
-        raise NotImplementedError(
-            "faithful T-tick IF boundary encoder: not ported yet")
+    """Activation -> signed float counts in {-T..T}. Differentiable.
+
+    ``cfg.faithful`` selects the T-tick IF encoder on ``x/scale`` with
+    the gate ``theta/scale``: through ``lif_rate_encode_signed`` when a
+    gradient is wanted (CPU tensors only; training is not ported to the
+    card), else through the ``lif_encode`` kernel, whose counts are the
+    same.  It takes float32 activations only: for bf16
+    the reference divides and integrates in bf16, which the kernel
+    (f32, as the TPU kernel) does not reproduce."""
     scale = torch.exp(params["log_scale"]).to(x.dtype)
     theta = params["theta"].to(x.dtype)
-    return rate_encode_signed(x, scale, theta, cfg.T)
+    if not cfg.faithful:
+        return rate_encode_signed(x, scale, theta, cfg.T)
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            f"faithful IF encoder on {x.dtype} activations: not ported "
+            "(the reference integrates in that dtype; the port serves f32)")
+    if needs_grad(x, params["theta"], params["log_scale"]):
+        if x.device.type != "cpu":
+            raise NotImplementedError(
+                f"gradients through the faithful IF encoder on {x.device}: "
+                "the lif_encode kernel has no surrogate-gradient backward "
+                "yet; the autograd path runs on CPU tensors only")
+        return lif_rate_encode_signed(x / scale, theta / scale, cfg.T)
+    C = x.shape[-1]
+    counts = kops.lif_encode(x.reshape(-1, C), theta, scale, T=cfg.T)
+    return counts.reshape(x.shape).to(x.dtype)
 
 
 def decode(counts, params: dict, cfg: SpikeConfig, dtype=torch.bfloat16):

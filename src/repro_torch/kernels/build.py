@@ -19,8 +19,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-#: kernel name -> source file under csrc/
-SOURCES = {"paged_decode": "paged_decode.cu"}
+#: library name -> source file under csrc/ (``pack4.cu`` holds both the
+#: pack and the unpack kernel)
+SOURCES = {"paged_decode": "paged_decode.cu", "lif_encode": "lif_encode.cu",
+           "pack4": "pack4.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,20 @@
-"""Conformance cases for the paged-decode kernel.
+"""Conformance cases for the port's kernels.
 
-The same inputs check the plain version against the JAX oracle on the
-CPU (``tests/test_torch_paged_decode.py``) and the CUDA kernel against
-the plain version on the card (``chip_smoke.py``): random pools and
-well-formed compacted lists (distinct pool rows, ascending positions)
-with each slot's queries at its write frontier, all drawn from a numpy
-``RandomState``.
+The same inputs check each plain version against the JAX package on the
+CPU (``tests/test_torch_paged_decode.py``, ``test_torch_lif_encode.py``,
+``test_torch_pack4.py``) and each CUDA kernel against its plain version
+on the card (``chip_smoke.py``, ``tests/test_torch_gpu.py``), all drawn
+from a numpy ``RandomState`` or built exactly:
+
+* paged decode: random pools and well-formed compacted lists (distinct
+  pool rows, ascending positions) with each slot's queries at its write
+  frontier;
+* ``lif_encode``: random activations, thresholds and scales; drives
+  that land on and next to a half-integer tick count (where the IF
+  encoder and the closed form part); zeros, -0.0, saturation and zero
+  thresholds;
+* ``pack4`` / ``unpack4``: every byte value, and random 4-bit wires of
+  ragged row counts.
 """
 from __future__ import annotations
 
@@ -69,3 +78,85 @@ def to_tensors(arrays, device, pool_dtype=torch.float32):
     t = lambda a, dt=None: torch.tensor(a, dtype=dt, device=device)  # noqa: E731
     return (t(q), t(kp, pool_dtype), t(vp, pool_dtype), t(clp), t(clo),
             t(qpos))
+
+
+# ---------------------------------------------------------------------------
+# lif_encode
+# ---------------------------------------------------------------------------
+
+LIF_CASES = ("random_t15", "random_t7", "random_bf16", "half_ticks_t15",
+             "half_ticks_t7", "edges")
+
+
+def _half_ticks(T, scales):
+    """x whose drive x/scale sits on (k + 1/2)/T, k = 0..T-1, and one
+    float either side of it, both signs: 6 rows; the columns are the T
+    ticks at each scale in turn.  Returns (x [6, T*len], scale)."""
+    d = ((np.arange(T) + 0.5) / T).astype(np.float32)
+    scale = np.repeat(np.float32(scales), T)
+    x = (np.tile(d, len(scales)) * scale).astype(np.float32)
+    rows = [x, np.nextafter(x, np.float32(np.inf)),
+            np.nextafter(x, np.float32(0))]
+    return np.stack(rows + [-r for r in rows]), scale
+
+
+def _edges():
+    """Zeros, -0.0, saturation (|x| >= scale), drives far past it, a
+    zero threshold, and values at, below and above the threshold."""
+    scale = np.float32([1.0, 1.0, 0.5, 2.0, 1.0, 1.0, 3.0, 0.25])
+    theta = np.float32([0.0, 0.1, 0.0, 0.5, 1e-3, 0.0, 0.2, 0.0])
+    rows = [np.zeros(8), -np.zeros(8), scale, -scale, 2 * scale,
+            -3 * scale, np.full(8, 1e30), theta, -theta, 0.5 * theta,
+            np.nextafter(theta, np.float32(np.inf)), np.full(8, 1e-30)]
+    return np.stack(rows).astype(np.float32), theta, scale
+
+
+def lif_case(name):
+    """``(x f32 [M, C], theta f32 [C], scale f32 [C], T, x dtype name)``
+    of a named ``lif_encode`` case; a bf16 case's x holds bf16 values."""
+    if name.startswith("random"):
+        seed, M, C, T = {"random_t15": (0, 8, 128, 15),
+                         "random_t7": (1, 33, 100, 7),
+                         "random_bf16": (2, 16, 64, 15)}[name]
+        rng = np.random.RandomState(seed)
+        x = (rng.standard_normal((M, C)) * 1.5).astype(np.float32)
+        theta = rng.uniform(0.0, 0.3, C).astype(np.float32)
+        scale = np.exp(rng.uniform(-1.0, 1.0, C)).astype(np.float32)
+        if name == "random_bf16":
+            x = torch.tensor(x).to(torch.bfloat16).float().numpy()
+            return x, theta, scale, T, "bfloat16"
+        return x, theta, scale, T, "float32"
+    if name.startswith("half_ticks"):
+        T = int(name[len("half_ticks_t"):])
+        x, scale = _half_ticks(T, [1.0, 0.75, 2.5])
+        return x, np.zeros_like(scale), scale, T, "float32"
+    if name == "edges":
+        x, theta, scale = _edges()
+        return x, theta, scale, 15, "float32"
+    raise KeyError(name)
+
+
+def lif_tensors(name, device):
+    """A ``lif_encode`` case as tensors ``(x, theta, scale, T)``."""
+    x, theta, scale, T, dt = lif_case(name)
+    return (torch.tensor(x, dtype=getattr(torch, dt), device=device),
+            torch.tensor(theta, device=device),
+            torch.tensor(scale, device=device), T)
+
+
+# ---------------------------------------------------------------------------
+# pack4 / unpack4
+# ---------------------------------------------------------------------------
+
+PACK4_CASES = ("all_bytes", "wire_ragged", "wire_row")
+
+
+def pack4_case(name):
+    """uint8 ``[M, C]`` (C even) of a named case: every byte value as 8
+    rows of 32 (to pack and to unpack), or random 4-bit wires — the
+    biased counts of ``spike_pack4`` — over 37 rows of 18 or 1 row of
+    2048."""
+    if name == "all_bytes":
+        return np.arange(256, dtype=np.uint8).reshape(8, 32)
+    shape = {"wire_ragged": (37, 18), "wire_row": (1, 2048)}[name]
+    return np.random.RandomState(3).randint(0, 15, shape).astype(np.uint8)

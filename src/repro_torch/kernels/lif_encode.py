@@ -1,0 +1,114 @@
+"""T-tick IF spike encoder: the plain version and the CUDA launch.
+
+Replaces the TPU kernel ``lif_encode_pallas`` (body
+``_lif_encode_kernel``) of ``src/repro/kernels/lif_encode.py``; the
+plain version is the port of its oracle ``ref.lif_encode_ref``, with
+one difference taken from the JAX ``spike`` codec that serving runs.
+
+For ``x [M, C]`` and per-channel ``theta``, ``scale [C]``, in float32:
+on and off integrate-and-fire populations start their membranes at 0.5
+and add ``clip(x/scale, 0, 1)`` and ``clip(-x/scale, 0, 1)`` each of T
+ticks, firing at >= 1 with subtract reset; the int8 output is the count
+difference in {-T..T}, gated to 0 where ``|x/scale| < theta/scale``.
+The oracle gates on raw values (``|x| >= theta``); the JAX faithful
+codec (``spike.encode`` with ``SpikeConfig(faithful=True)``) gates on
+normalised ones, and the two differ only where ``fl(|x|/s) ==
+fl(theta/s)`` while ``|x| < theta``.  The port follows the codec, so
+the served counts are the JAX package's bit for bit.
+
+The CUDA kernel (``csrc/lif_encode.cu``) runs one thread per element
+with the tick loop in registers.  At most one population of an element
+can fire (the other's drive is 0, and a membrane of 0.5 never reaches
+1), so the kernel integrates only ``clip(|x/s|, 0, 1)``, and only where
+the gate is open, and signs the count.  What bounds it on the card is
+memory: x read once and one int8 count written per element.
+
+``ops.lif_encode`` is the wrapper callers use: CPU tensors take
+``lif_encode_plain``, CUDA tensors ``lif_encode_cuda``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+F32 = torch.float32
+
+
+def heaviside(v):
+    return (v >= 0.0).to(v.dtype)
+
+
+def if_count(drive, T: int, step=heaviside):
+    """One integrate-and-fire population: from a membrane of 0.5, add
+    ``drive`` each of T ticks and fire where ``step(u - 1)`` is 1, with
+    subtract reset.  Returns the float spike counts in {0..T}.  The
+    faithful codec's autograd path passes the surrogate-gradient spike
+    as ``step``; the plain version takes the Heaviside."""
+    u = torch.full_like(drive, 0.5)
+    count = torch.zeros_like(drive)
+    for _ in range(T):
+        u = u + drive
+        s = step(u - 1.0)
+        u = u - s
+        count = count + s
+    return count
+
+
+def lif_encode_plain(x, theta, scale, *, T: int = 15):
+    """x [M, C] float -> int8 signed counts [M, C]; theta, scale [C]."""
+    s = scale.to(F32)
+    xn = x.to(F32) / s
+    gate = (torch.abs(xn) - theta.to(F32) / s) >= 0.0
+    c = (if_count(torch.clamp(xn, 0.0, 1.0), T)
+         - if_count(torch.clamp(-xn, 0.0, 1.0), T))
+    return torch.where(gate, c, torch.zeros_like(c)).to(torch.int8)
+
+
+def _library():
+    fn = build.load("lif_encode").lif_encode_launch
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        fn.argtypes = [P, P, P, P, L, I, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _require(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"lif_encode_cuda: {msg}")
+
+
+def lif_encode_cuda(x, theta, scale, *, T: int = 15):
+    """Launch the CUDA kernel on the current stream; same contract as
+    ``lif_encode_plain``.  ``x`` f32 or bf16 [M, C] with M*C > 0;
+    ``theta``, ``scale`` f32 [C]; all contiguous on one CUDA device.
+    Raises on anything else and when the launch is refused."""
+    dev = x.device
+    _require(dev.type == "cuda", f"x lies on {dev}, not a CUDA device")
+    _require(theta.device == dev and scale.device == dev,
+             "tensors lie on different devices")
+    _require(x.dtype in (F32, torch.bfloat16),
+             f"x must be float32 or bfloat16, got {x.dtype}")
+    _require(theta.dtype == F32 and scale.dtype == F32,
+             f"theta and scale must be float32, got {theta.dtype}/"
+             f"{scale.dtype}")
+    _require(x.ndim == 2 and x.numel() > 0, f"x must be a non-empty "
+             f"[M, C], got {tuple(x.shape)}")
+    M, C = x.shape
+    _require(tuple(theta.shape) == (C,) and tuple(scale.shape) == (C,),
+             f"theta and scale must be [{C}]")
+    _require(all(t.is_contiguous() for t in (x, theta, scale)),
+             "every input must be contiguous")
+    _require(1 <= T <= 127, f"T={T} must fit the int8 count")
+    out = torch.empty((M, C), dtype=torch.int8, device=dev)
+    err = _library()(
+        x.data_ptr(), theta.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, C, int(T), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lif_encode kernel launch failed: CUDA error "
+                           f"{err}")
+    return out

@@ -9,7 +9,18 @@ that its main path went through the kernel.
 """
 from __future__ import annotations
 
+from . import lif_encode as LE
+from . import pack4 as PK
 from . import paged_decode as PD
+
+
+def _on_cuda(name, t) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return True
 
 
 def paged_flash_decode(q, k_pool, v_pool, cl_page, cl_pos, qpos, *,
@@ -26,23 +37,56 @@ def paged_flash_decode(q, k_pool, v_pool, cl_page, cl_pos, qpos, *,
     """
     args = (q, k_pool, v_pool, cl_page, cl_pos, qpos)
     kw = dict(window=window, cap=cap, encode_wire=encode_wire)
-    if q.device.type == "cpu":
+    if not _on_cuda("paged_flash_decode", q):
         return PD.paged_decode_plain(*args, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_flash_decode: no kernel for device "
-                         f"{q.device}")
     out = PD.paged_decode_cuda(q.float().contiguous(), *args[1:], **kw)
     paged_flash_decode.launches += 1
     return out
 
 
-paged_flash_decode.launches = 0
+def lif_encode(x, theta, scale, *, T: int = 15):
+    """T-tick on/off IF rate encoder: x [M, C] -> int8 counts [M, C],
+    gated on ``|x/scale| >= theta/scale``; theta, scale [C], taken as
+    float32 (as the TPU kernel casts them)."""
+    theta, scale = theta.float(), scale.float()
+    if not _on_cuda("lif_encode", x):
+        return LE.lif_encode_plain(x, theta, scale, T=T)
+    out = LE.lif_encode_cuda(x.contiguous(), theta.contiguous(),
+                             scale.contiguous(), T=T)
+    lif_encode.launches += 1
+    return out
+
+
+def pack4(wire):
+    """uint8 values < 16, [M, C] with C even -> uint8 [M, C/2]."""
+    if not _on_cuda("pack4", wire):
+        return PK.pack4_plain(wire)
+    out = PK.pack4_cuda(wire.contiguous())
+    pack4.launches += 1
+    return out
+
+
+def unpack4(packed):
+    """uint8 [M, C2] -> uint8 [M, 2*C2], the inverse of ``pack4``."""
+    if not _on_cuda("unpack4", packed):
+        return PK.unpack4_plain(packed)
+    out = PK.unpack4_cuda(packed.contiguous())
+    unpack4.launches += 1
+    return out
+
+
+_WRAPPERS = {"paged_decode": paged_flash_decode, "lif_encode": lif_encode,
+             "pack4": pack4, "unpack4": unpack4}
 
 
 def launch_counts() -> dict:
     """Kernel name -> launches counted so far."""
-    return {"paged_decode": paged_flash_decode.launches}
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
 def reset_launch_counts():
-    paged_flash_decode.launches = 0
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
+
+
+reset_launch_counts()

@@ -1,0 +1,95 @@
+"""4-bit two-per-byte wire packing: the plain versions and the CUDA
+launches.
+
+Replace the TPU kernels ``pack4_pallas`` and ``unpack4_pallas`` of
+``src/repro/kernels/pack4.py``; the plain versions are the ports of
+their oracles ``ref.pack4_ref`` / ``ref.unpack4_ref``.  Pack takes uint8
+``[M, C]`` (C even) to ``[M, C/2]`` with ``out[k] = v[2k] | v[2k+1] <<
+4``; unpack is its inverse on values below 16.  For a spike count in
+{-7..7} biased by T=7 the wire halves again (``spike_pack4``).
+
+Both CUDA kernels (``csrc/pack4.cu``) walk the flat bytes, one thread
+per output byte (pack) or input byte (unpack).  What bounds them on the
+card is memory: each byte read once and written once.
+
+``ops.pack4`` / ``ops.unpack4`` are the wrappers callers use: CPU
+tensors take the plain versions, CUDA tensors the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+U8 = torch.uint8
+
+
+def pack4_plain(wire):
+    """uint8 [M, C] (C even) -> uint8 [M, C/2]."""
+    if wire.shape[-1] % 2:
+        raise ValueError(f"pack4: last axis {wire.shape[-1]} is odd")
+    return wire[..., 0::2] | (wire[..., 1::2] << 4)
+
+
+def unpack4_plain(packed):
+    """uint8 [M, C2] -> uint8 [M, 2*C2]."""
+    out = torch.stack([packed & 0xF, (packed >> 4) & 0xF], dim=-1)
+    return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
+
+
+def _library(name):
+    fn = getattr(build.load("pack4"), name)
+    if fn.argtypes is None:
+        P = ctypes.c_void_p
+        fn.argtypes = [P, P, ctypes.c_long, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _require(fn_name, cond, msg):
+    if not cond:
+        raise ValueError(f"{fn_name}: {msg}")
+
+
+def _check_input(fn_name, t):
+    _require(fn_name, t.device.type == "cuda",
+             f"input lies on {t.device}, not a CUDA device")
+    _require(fn_name, t.dtype == U8, f"input must be uint8, got {t.dtype}")
+    _require(fn_name, t.ndim == 2 and t.numel() > 0,
+             f"input must be a non-empty [M, C], got {tuple(t.shape)}")
+    _require(fn_name, t.is_contiguous(), "input must be contiguous")
+
+
+def _launch(name, src, out, n):
+    err = _library(name)(src.data_ptr(), out.data_ptr(), n,
+                         torch.cuda.current_stream(src.device).cuda_stream)
+    if err != 0:
+        kernel = name.replace("_launch", "")
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def pack4_cuda(wire):
+    """Launch the pack kernel on the current stream; same contract as
+    ``pack4_plain``.  Raises unless ``wire`` is a contiguous non-empty
+    uint8 [M, C] with C even on a CUDA device, and when the launch is
+    refused."""
+    _check_input("pack4_cuda", wire)
+    M, C = wire.shape
+    _require("pack4_cuda", C % 2 == 0, f"last axis {C} is odd")
+    out = torch.empty((M, C // 2), dtype=U8, device=wire.device)
+    return _launch("pack4_launch", wire, out, out.numel())
+
+
+def unpack4_cuda(packed):
+    """Launch the unpack kernel on the current stream; same contract as
+    ``unpack4_plain``.  Raises unless ``packed`` is a contiguous
+    non-empty uint8 [M, C2] on a CUDA device, and when the launch is
+    refused."""
+    _check_input("unpack4_cuda", packed)
+    M, C2 = packed.shape
+    out = torch.empty((M, 2 * C2), dtype=U8, device=packed.device)
+    return _launch("unpack4_launch", packed, out, packed.numel())

@@ -185,6 +185,7 @@ class ServingEngine:
         self.margins: dict = {}
         self.tokens_generated = 0
         self.decode_steps = 0
+        self.prefills = 0
         self.preemptions = 0
 
     # -- request lifecycle -------------------------------------------------
@@ -216,6 +217,7 @@ class ServingEngine:
     def _prefill(self, prompt):
         toks = np.zeros((1, self.prefill_len), np.int32)
         toks[0, :len(prompt)] = np.asarray(prompt, np.int32)
+        self.prefills += 1
         logits, pre_cache = M.forward_prefill(
             self.params, self._stage(toks), self.ctx,
             last_pos=self._stage([len(prompt) - 1]))

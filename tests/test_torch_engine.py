@@ -3,8 +3,9 @@ batching.
 
 One fixed schedule — seven requests of mixed prompt lengths and budgets
 on three slots, so requests queue, admit into freed slots and share the
-page pool — runs through the port's ``ServingEngine`` for
-``spike_fused`` and ``none``.  Each request's stream must equal:
+page pool — runs through the port's ``ServingEngine`` for every codec
+(``spike_fused``, ``none``, ``spike``, ``spike_pack4``,
+``sparse_topk``).  Each request's stream must equal:
 
 1. its solo greedy loop through the JAX model-level steps (the helpers
    of ``test_torch_model.py``), under that file's margin rule.  The JAX
@@ -83,7 +84,8 @@ def _check_schedule(codec, **kw):
     return batched, eng
 
 
-@pytest.mark.parametrize("codec", ["spike_fused", "none"])
+@pytest.mark.parametrize("codec", ["spike_fused", "none", "spike",
+                                   "spike_pack4", "sparse_topk"])
 def test_engine_streams_match_solo_reference_and_jax(codec):
     batched, eng = _check_schedule(codec)
     for i, (_, m) in enumerate(SCHEDULE):

@@ -9,12 +9,15 @@ no JAX, so it collects where only PyTorch is installed.
   inputs, for every conformance case, f32 and bf16 pools, with and
   without the int8 wire epilogue (o and lse within 2e-5; the wire within
   one quantization step).
+* The ``lif_encode``, ``pack4`` and ``unpack4`` kernels against their
+  plain versions on every conformance case, exactly (integer outputs).
 * The reduced model served on the card: kernel walk and reference walk
   give the same greedy streams under the margin rule, and the kernel
   ran once per layer per decode step.  In bfloat16 (the configs'
   default dtype) the kernel walk serves with the same launch count and
   frees every page; its streams are not compared, since bf16 rounding
-  ties flip argmax.
+  ties flip argmax.  With the ``spike`` and ``spike_pack4`` codecs the
+  boundary kernels run once per coded boundary site.
 """
 import numpy as np
 import pytest
@@ -22,7 +25,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.cases import CASES, case_arrays, to_tensors  # noqa: E402
+from repro_torch.kernels.cases import (  # noqa: E402
+    CASES, LIF_CASES, PACK4_CASES, case_arrays, lif_tensors, pack4_case,
+    to_tensors)
+from repro_torch.kernels.lif_encode import lif_encode_plain  # noqa: E402
+from repro_torch.kernels.pack4 import pack4_plain, unpack4_plain  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_decode_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -52,6 +59,59 @@ def test_kernel_matches_plain_on_card(name, pool_dtype):
     assert torch.equal(lse_w, lse)
     assert bool(((w.float() * s - pw.float() * ps).abs()
                  <= ps + 1e-6).all())
+
+
+@pytest.mark.parametrize("name", LIF_CASES)
+def test_lif_encode_matches_plain_on_card(name):
+    _require_cuda()
+    x, theta, scale, T = lif_tensors(name, "cuda")
+    before = ops.launch_counts()["lif_encode"]
+    got = ops.lif_encode(x, theta, scale, T=T)
+    assert ops.launch_counts()["lif_encode"] == before + 1
+    assert torch.equal(got, lif_encode_plain(x, theta, scale, T=T))
+
+
+@pytest.mark.parametrize("name", PACK4_CASES)
+def test_pack4_unpack4_match_plain_on_card(name):
+    _require_cuda()
+    v = torch.tensor(pack4_case(name), device="cuda")
+    packed = ops.pack4(v)
+    assert torch.equal(packed, pack4_plain(v))
+    assert torch.equal(ops.unpack4(v), unpack4_plain(v))
+    assert torch.equal(ops.unpack4(packed), unpack4_plain(packed))
+
+
+@pytest.mark.parametrize("codec", ["spike", "spike_pack4"])
+def test_engine_on_card_boundary_kernels(codec):
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = reduced(get_config("qwen1.5-0.5b")).replace(dtype=torch.float32,
+                                                      codec=codec)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+    rng = np.random.RandomState(2)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab, L).tolist(),
+                    max_new_tokens=6)
+            for i, L in enumerate(rng.randint(1, 60, 5))]
+    ops.reset_launch_counts()
+    eng = ServingEngine(cfg, params, EngineConfig(num_slots=2, max_seq=64,
+                                                  page_size=8))
+    out = eng.run(reqs)
+    n = ops.launch_counts()
+    L, steps, pre = cfg.n_layers, eng.decode_steps, eng.prefills
+    if codec == "spike":
+        want = {"lif_encode": 4 * L * (steps + pre), "pack4": 0}
+    else:
+        want = {"lif_encode": 0, "pack4": L * (2 * steps + 4 * pre)}
+    assert steps > 0 and pre == len(reqs)
+    assert n["lif_encode"] == want["lif_encode"]
+    assert n["pack4"] == n["unpack4"] == want["pack4"]
+    assert eng.cache.allocator.pages_in_use == 0
+    assert all(len(out[r.rid]) == 6 for r in reqs)
 
 
 def test_engine_on_card_fused_matches_reference():

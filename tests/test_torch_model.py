@@ -3,7 +3,9 @@
 Reduced ``qwen1.5-0.5b`` in float32 with the JAX package's own init
 (``init_sharded_params`` on a 1x1 mesh, as ``benchmarks/serve_bench.py``
 builds it), carried across with ``params_from_jax``.  For ``ann``/codec
-``none`` and ``hnn``/``spike_fused``:
+``none`` and, in HNN mode, every coded boundary codec (``spike_fused``;
+``spike``, the T-tick IF encoder; ``spike_pack4``, T=7 packed two per
+byte; ``sparse_topk``):
 
 * prefill logits and prompt KV of right-padded prompts (``last_pos``),
 * five teacher-forced decode steps over a shared paged pool holding
@@ -12,7 +14,8 @@ builds it), carried across with ``params_from_jax``.  For ``ann``/codec
 
 The reference steps are ``M.forward_prefill``, ``kv_cache.make_insert_fn``
 and ``M.forward_decode`` under ``jax.shard_map`` on a 1x1 mesh, wrapped
-as the serving engine wraps them but returning logits.  Every input is
+as the serving engine wraps them but returning logits, built once per
+codec on first use.  Every input is
 made with numpy from a fixed seed and handed to each side as a fresh
 copy.  This module also holds the helpers ``test_torch_engine.py``
 shares: the JAX reference model and its solo greedy loop.
@@ -58,7 +61,8 @@ SLOTS, MAX_SEQ, PREFILL, PSZ = 3, 64, 32, 8
 NUM_PAGES = SLOTS * (MAX_SEQ // PSZ)
 LOGIT_TOL = 1e-5
 MARGIN = 1e-4
-CODECS = (("ann", "none"), ("hnn", "spike_fused"))
+CODECS = (("ann", "none"), ("hnn", "spike_fused"), ("hnn", "spike"),
+          ("hnn", "spike_pack4"), ("hnn", "sparse_topk"))
 
 
 class JaxModel:
@@ -169,13 +173,22 @@ def assert_greedy_agrees(ref_tokens, ref_margins, tokens):
     assert len(ref_tokens) == len(tokens), (ref_tokens, tokens)
 
 
-MODELS = {codec: JaxModel(hnn, codec) for hnn, codec in CODECS}
+class _Models(dict):
+    """codec -> ``JaxModel``, each built (and compiled) on first use."""
+
+    def __missing__(self, codec):
+        hnn = {c: h for h, c in CODECS}[codec]
+        model = self[codec] = JaxModel(hnn, codec)
+        return model
+
+
+MODELS = _Models()
 
 
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("codec", [c for _, c in CODECS])
+@pytest.mark.parametrize("codec", ["none", "spike_fused"])
 def test_params_carry_across(codec):
     jm = MODELS[codec]
     flat = jax.tree_util.tree_flatten_with_path(jm.params)[0]

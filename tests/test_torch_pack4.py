@@ -1,0 +1,84 @@
+"""The port's 4-bit wire packing against the JAX package.
+
+Same numpy inputs (``repro_torch.kernels.cases.PACK4_CASES``: every byte
+value, and random 4-bit wires of ragged row counts) through
+``pack4_plain`` / ``unpack4_plain`` (via ``ops.pack4`` / ``ops.unpack4``
+on CPU tensors) and the JAX oracles ``ref.pack4_ref`` /
+``ref.unpack4_ref``, the JAX wrappers ``ops.pack4`` / ``ops.unpack4``
+(interpreted Pallas on the CPU) and ``spike.pack4`` / ``unpack4``: all
+exactly equal, and unpack inverts pack on 4-bit values.  The biased
+uint8 wire helpers equal JAX's on every count in {-15..15}.  An odd
+last axis raises, as the TPU kernel's assertion does.  The CUDA kernels
+need the card: ``tests/test_torch_gpu.py`` holds them against these
+plain versions there.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import spike as JS  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+
+from repro_torch.core import spike as TS  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.cases import PACK4_CASES, pack4_case  # noqa: E402
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("name", PACK4_CASES)
+def test_pack4_matches_jax(name):
+    v = pack4_case(name)
+    got = ops.pack4(torch.tensor(v))
+    assert got.dtype == torch.uint8 and got.shape == (v.shape[0],
+                                                      v.shape[1] // 2)
+    jv = jnp.array(v)
+    for want in (jref.pack4_ref(jv), jops.pack4(jv), JS.pack4(jv)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if v.max() < 16:
+        np.testing.assert_array_equal(ops.unpack4(got).numpy(), v)
+
+
+@pytest.mark.parametrize("name", PACK4_CASES)
+def test_unpack4_matches_jax(name):
+    p = pack4_case(name)
+    got = ops.unpack4(torch.tensor(p))
+    assert got.dtype == torch.uint8 and got.shape == (p.shape[0],
+                                                      2 * p.shape[1])
+    jp = jnp.array(p)
+    for want in (jref.unpack4_ref(jp), jops.unpack4(jp), JS.unpack4(jp)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(ops.pack4(got).numpy(), p)
+
+
+def test_spike_pack4_on_leading_dims_and_wire_helpers():
+    rng = np.random.RandomState(4)
+    counts = rng.randint(-7, 8, (3, 2, 10)).astype(np.float32)
+    for T in (7, 15):
+        c = (counts * T / 7).round().astype(np.float32)
+        w = TS.counts_to_wire_u8(torch.tensor(c), T)
+        np.testing.assert_array_equal(
+            w.numpy(), np.asarray(JS.counts_to_wire_u8(jnp.array(c), T)))
+        back = TS.wire_u8_to_counts(w, T)
+        np.testing.assert_array_equal(back.numpy(), np.asarray(
+            JS.wire_u8_to_counts(jnp.array(w.numpy()), T)))
+        np.testing.assert_array_equal(back.numpy(), c)
+    w = TS.counts_to_wire_u8(torch.tensor(counts), 7)
+    packed = TS.pack4(w)
+    assert packed.shape == (3, 2, 5)
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(JS.pack4(jnp.array(w.numpy()))))
+    np.testing.assert_array_equal(TS.unpack4(packed).numpy(), w.numpy())
+
+
+def test_odd_last_axis_and_other_devices_raise():
+    with pytest.raises(ValueError):
+        ops.pack4(torch.zeros(4, 7, dtype=torch.uint8))
+    meta = torch.zeros(2, 4, dtype=torch.uint8, device="meta")
+    for fn in (ops.pack4, ops.unpack4):
+        with pytest.raises(ValueError):
+            fn(meta)

@@ -6,10 +6,19 @@ Same numpy inputs through ``repro.core`` and ``repro_torch.core``:
   half-integer ties (T=16 makes ``|x|/scale*T`` land on ``k + 0.5``
   exactly), which both round half to even;
 * ``quantize_partial`` is exactly equal;
-* ``coded_psum`` at size 1 (JAX under ``shard_map`` on a 1x1 mesh) and
-  ``wire_roundtrip`` agree within 1e-6 for ``none``, ``int8`` and
-  ``spike_fused`` (float32; the decode multiplies in the same order, so
-  the bound only covers reassociation inside XLA);
+* the integer wire of every coded mode (``_encode_local``: int8 and
+  its scales, spike counts, the packed 4-bit bytes of ``spike_pack4``)
+  is exactly equal;
+* ``coded_psum``, ``coded_psum_scatter`` and ``coded_all_gather`` at
+  size 1 (JAX under ``shard_map`` on a 1x1 mesh) and ``wire_roundtrip``
+  agree within 1e-6 for all six modes (float32; the decode multiplies
+  in the same order, so the bound covers reassociation inside XLA and
+  the last place of ``exp(log_scale)``, in which XLA's and torch's exp
+  may differ);
+* ``sparse_topk``'s gather keeps exactly k channels per token, and on
+  inputs full of ties at the k-th magnitude its indices and decoded
+  output equal JAX's (``lax.top_k`` keeps the lower index among
+  equals), while ``wire_roundtrip``'s threshold keeps every tie;
 * the gradients of ``round_ste`` and of the encoder's surrogate path
   equal JAX's.
 """
@@ -31,7 +40,8 @@ from repro_torch.core import spike as TS  # noqa: E402
 
 torch.set_num_threads(1)
 
-MODES = ("none", "int8", "spike_fused")
+MODES = ("none", "int8", "spike_fused", "spike", "spike_pack4",
+         "sparse_topk")
 
 
 def _params(rng, C):
@@ -48,7 +58,11 @@ def _tp(p):
 
 
 def _codec(mod, mode):
-    return mod.BoundaryCodec(mode=mode, cfg=mod.SpikeConfig(T=15))
+    """The codec of ``models.context.codec_from_name`` for ``mode``."""
+    cfg = {"spike": mod.SpikeConfig(T=15, faithful=True),
+           "spike_pack4": mod.SpikeConfig(T=7)}.get(mode,
+                                                     mod.SpikeConfig(T=15))
+    return mod.BoundaryCodec(mode=mode, cfg=cfg)
 
 
 def test_counts_equal_random():
@@ -116,13 +130,121 @@ def test_coded_psum_and_wire_roundtrip(mode):
         assert not np.allclose(tr.numpy(), x)      # the codec really ran
 
 
+def _shard_mapped(fn):
+    return jax.jit(jax.shard_map(fn, mesh=_MESH, in_specs=(P(), P(), P()),
+                                 out_specs=P(), check_vma=False))
+
+
+_JTRAIN = {(name, mode): _shard_mapped(
+    lambda x, th, ls, m=mode, f=fn: f(
+        x, {"theta": th, "log_scale": ls}, _codec(JB, m), "model", axis=1))
+    for name, fn in (("coded_all_gather", JB.coded_all_gather),
+                     ("coded_psum_scatter", JB.coded_psum_scatter))
+    for mode in MODES}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["coded_all_gather", "coded_psum_scatter"])
+def test_prefill_boundaries(name, mode):
+    """The token-axis gather and reduce-scatter of a prefill block
+    ([B, S, D], axis 1) at size 1."""
+    rng = np.random.RandomState(5)
+    x = rng.standard_normal((2, 6, 32)).astype(np.float32)
+    p = _params(rng, 32)
+    jout = _JTRAIN[name, mode](jnp.array(x), jnp.array(p["theta"]),
+                               jnp.array(p["log_scale"]))
+    tout = getattr(TB, name)(torch.tensor(x), _tp(p), _codec(TB, mode),
+                             axis=1)
+    assert tout.shape == x.shape and tout.dtype == torch.float32
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-6,
+                               atol=1e-6)
+    if mode != "none":
+        assert not np.allclose(tout.numpy(), x)
+
+
+@pytest.mark.parametrize("mode", [m for m in MODES if m != "none"])
+def test_encode_local_wire_exact(mode):
+    rng = np.random.RandomState(6)
+    x = (rng.standard_normal((3, 4, 32)) * 1.5).astype(np.float32)
+    p = _params(rng, 32)
+    jw, js, _ = JB._encode_local(jnp.array(x), _jp(p), _codec(JB, mode))
+    tw, ts, _ = TB._encode_local(torch.tensor(x), _tp(p), _codec(TB, mode))
+    assert str(tw.dtype)[6:] == str(jw.dtype)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    if mode == "int8":
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    if mode == "spike_pack4":
+        assert tw.shape == (3, 4, 16)
+
+
+_JTOPK = _shard_mapped(lambda x, th, ls: JB.coded_all_gather(
+    x, {"theta": th, "log_scale": ls}, _codec(JB, "sparse_topk"), "model",
+    axis=1))
+
+
+def test_sparse_topk_ties_follow_lax_top_k():
+    """Activations from five levels at scale 1 put the counts of each
+    token on a few magnitudes, so the k-th largest is tied many times
+    over; the port must keep the same k channels as ``lax.top_k``."""
+    rng = np.random.RandomState(7)
+    C = 96                                    # k = 12
+    levels = np.float32([0.0, 0.2, -0.4, 0.6, -0.6])
+    x = levels[rng.randint(0, 5, (2, 5, C))]
+    p = {"theta": np.zeros(C, np.float32),
+         "log_scale": np.zeros(C, np.float32)}
+    codec = _codec(TB, "sparse_topk")
+    k = TB._topk_k(C, codec.capacity)
+    counts = TB.spike.encode(torch.tensor(x), _tp(p), codec.cfg)
+    mag = counts.abs()
+    kth = torch.sort(mag, dim=-1, descending=True).values[..., k - 1:k]
+    assert ((mag == kth).sum(-1) > 1).all()   # the k-th magnitude is tied
+    idx, vals = TB.topk_wire(counts, k)
+    _, jidx = jax.lax.top_k(jnp.abs(jnp.array(counts.numpy())), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.take_along_axis(
+        counts.numpy(), np.asarray(jidx), -1).astype(np.int8))
+    tout = TB.coded_all_gather(torch.tensor(x), _tp(p), codec, axis=1)
+    jout = _JTOPK(jnp.array(x), jnp.array(p["theta"]),
+                  jnp.array(p["log_scale"]))
+    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+    assert ((tout != 0).sum(-1) <= k).all()
+    # the decode path's threshold keeps every tie: more than k channels
+    rt = TB.wire_roundtrip(torch.tensor(x), _tp(p), codec)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(JB.wire_roundtrip(
+        jnp.array(x), _jp(p), _codec(JB, "sparse_topk"))))
+    assert ((rt != 0).sum(-1) > k).any()
+
+
+def test_sparse_topk_gather_refuses_gradients():
+    """The gather's VJP is not ported: with a gradient wanted it raises
+    rather than give a wrong one; without, it serves."""
+    rng = np.random.RandomState(8)
+    x = torch.tensor(rng.standard_normal((2, 3, 64)).astype(np.float32),
+                     requires_grad=True)
+    p = {k: torch.tensor(v) for k, v in _params(rng, 64).items()}
+    codec = _codec(TB, "sparse_topk")
+    with pytest.raises(NotImplementedError):
+        TB.coded_all_gather(x, p, codec, axis=1)
+    with torch.no_grad():
+        y = TB.coded_all_gather(x, p, codec, axis=1)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+
+
 def test_unported_modes_raise():
     x = torch.zeros(2, 4)
     p = {"theta": torch.zeros(4), "log_scale": torch.zeros(4)}
-    with pytest.raises(NotImplementedError):
-        TB.coded_psum(x, p, TB.BoundaryCodec(mode="spike_pack4"))
+    with pytest.raises(ValueError):
+        TB.coded_psum(x, p, TB.BoundaryCodec(mode="spike_pack2"))
     with pytest.raises(NotImplementedError):
         TB.coded_psum(x, p, _codec(TB, "int8"), world_size=2)
+    with pytest.raises(NotImplementedError):
+        TB.coded_psum(x.to(torch.bfloat16), p, _codec(TB, "spike"))
+
+
+def test_wire_bits_match_jax():
+    for mode in MODES:
+        assert (_codec(TB, mode).wire_bits()
+                == _codec(JB, mode).wire_bits())
 
 
 def test_round_ste_gradient():
