@@ -13,9 +13,14 @@ on failure:
    paged decode on the six conformance cases of ``kernels/cases.py`` and
    the serve shape (Hq = Hkv = 16, dh = 64, page 16, K1 = 1), f32 and
    bf16 pools, with and without the int8 wire epilogue (within 2e-5, the
-   wire within one int8 step); ``lif_encode``, ``pack4`` and ``unpack4``
-   on their conformance cases (every byte value among them) and at the
-   serve shapes [4, 1024], [120, 1024] and [256, 1024], exactly;
+   wire within one int8 step); ``lif_encode`` (in both of its compute
+   types, float32 and bfloat16), ``pack4`` and ``unpack4`` on their
+   conformance cases (every byte value among them) and at the serve
+   shapes [4, 1024], [120, 1024] and [256, 1024], exactly;
+   ``count_matmul`` on its conformance sweep (M in {1, 4, 33, 256}, K in
+   {128, 300, 1024}, N in {200, 1024, 2816}, T in {7, 15}, float32 and
+   bf16 weights and results; float32 within rtol = atol = 2e-5, bf16 the
+   rounding of a float32 sum within that of the plain version's);
 4. serve the full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16
    heads of 64, d_ff 2816, vocab 151936; HNN mode; float32 weights from
    the port's seeded init) through ``ServingEngine``: eight requests of
@@ -37,11 +42,21 @@ on failure:
    way — where the values it rounds from must agree to float noise — or
    to a reference top-1/top-2 logit margin of 1e-4.  In ANN mode (codec
    ``none``), where nothing rounds on a wire, the two walks' streams
-   must agree up to the margin rule alone;
+   must agree up to the margin rule alone.  Last, the same model in its
+   published dtype, bfloat16, serves the same requests under ``spike``
+   (``lif_encode`` in its bf16 mode), checked the same way; in its
+   checked run the count matmul shadow is on: at every boundary whose
+   decoded output feeds a projection, ``count_matmul`` runs on the int8
+   wire counts once per consuming weight (wq, wk, wv after the attention
+   input, w1, w3 after the MLP input: 24 x 5 launches per decode step
+   and per prefill), each launch held to its plain version, and the
+   served streams must not change;
 5. time each kernel, its plain version and its bound at the shapes the
    serve path gives it (paged decode also against PyTorch's
    ``scaled_dot_product_attention`` on the gathered K/V of the same live
-   tokens, as a yardstick only), and print one ``kernels`` JSON line;
+   tokens, ``count_matmul`` against ``torch.matmul`` of the decoded
+   float32 activations and float32 weights, as yardsticks only), and
+   print one ``kernels`` JSON line;
 6. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
@@ -72,14 +87,19 @@ MARGIN = 1e-4
 N_LAYERS = 24
 #: the main path's codecs, in the order they are served
 CODECS = ("spike_fused", "spike", "spike_pack4", "sparse_topk")
-#: the boundary kernels of this slice, each with its plain version
+#: the boundary kernels, each equal to its plain version
 BOUNDARY_KERNELS = ("lif_encode", "pack4", "unpack4")
+#: the weights that consume a boundary's decoded output, per layer: wq,
+#: wk, wv after the attention input and w1, w3 after the MLP input
+SHADOW_WEIGHTS = 5
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:143",
             "lif_encode": "src/repro/kernels/lif_encode.py:63",
+            "count_matmul": "src/repro/kernels/count_matmul.py:59",
             "pack4": "src/repro/kernels/pack4.py:42",
             "unpack4": "src/repro/kernels/pack4.py:59"}
 SOURCE = {"paged_decode": "src/repro_torch/csrc/paged_decode.cu",
           "lif_encode": "src/repro_torch/csrc/lif_encode.cu",
+          "count_matmul": "src/repro_torch/csrc/count_matmul.cu",
           "pack4": "src/repro_torch/csrc/pack4.cu",
           "unpack4": "src/repro_torch/csrc/pack4.cu"}
 
@@ -236,8 +256,9 @@ def boundary_bound(name, args, kw):
         # where this run's data opens the gate on a nonzero drive, one
         # population's add, compare, reset and count per tick (the other
         # population's drive is 0 and it never fires)
-        theta, scale = args[1], args[2]
-        xn = x.float() / scale
+        md = kw.get("math_dtype", torch.float32)
+        theta, scale = args[1].to(md), args[2].to(md)
+        xn = x.to(md) / scale
         live = int(((xn.abs() - theta / scale >= 0) & (xn != 0)).sum())
         nbytes = n * x.element_size() + 2 * x.shape[1] * 4 + n
         flops = 10 * n + 4 * kw["T"] * live
@@ -300,9 +321,10 @@ def check_exact(name, *args, **kw):
 
 
 def check_boundary_kernels():
-    """Every conformance case of ``lif_encode``, ``pack4`` and ``unpack4``,
-    and random inputs at the serve shapes, kernel == plain on the card.
-    Returns {kernel: largest abs difference}."""
+    """Every conformance case of ``lif_encode`` (in both compute types),
+    ``pack4`` and ``unpack4``, and random inputs at the serve shapes,
+    kernel == plain on the card.  Returns {kernel: largest abs
+    difference}."""
     from repro_torch.kernels.cases import (LIF_CASES, PACK4_CASES,
                                            lif_tensors, pack4_case)
     err = dict.fromkeys(BOUNDARY_KERNELS, 0.0)
@@ -310,6 +332,9 @@ def check_boundary_kernels():
         x, theta, scale, T = lif_tensors(name, "cuda")
         err["lif_encode"] = max(err["lif_encode"], check_exact(
             "lif_encode", x, theta, scale, T=T))
+        # the bf16 compute type, as the codec runs it on bf16 activations
+        err["lif_encode"] = max(err["lif_encode"], check_exact(
+            "lif_encode", x, theta, scale, T=T, math_dtype=torch.bfloat16))
     for name in PACK4_CASES:
         v = torch.tensor(pack4_case(name), device="cuda")
         err["pack4"] = max(err["pack4"], check_exact("pack4", v))
@@ -324,6 +349,12 @@ def check_boundary_kernels():
         for T in (15, 7):
             err["lif_encode"] = max(err["lif_encode"], check_exact(
                 "lif_encode", x, theta, scale, T=T))
+            # bf16 activations, thresholds and scales, as the bf16 codec
+            # hands them over (theta and scale as float32 values)
+            bf = torch.bfloat16
+            err["lif_encode"] = max(err["lif_encode"], check_exact(
+                "lif_encode", x.to(bf), theta.to(bf).float(),
+                scale.to(bf).float(), T=T, math_dtype=bf))
         wire = t(rng.randint(0, 15, (M, C)).astype(np.uint8))
         packed = t(rng.randint(0, 256, (M, C // 2)).astype(np.uint8))
         err["pack4"] = max(err["pack4"], check_exact("pack4", wire))
@@ -331,23 +362,116 @@ def check_boundary_kernels():
     return err
 
 
+def check_count_matmul():
+    """The count matmul's conformance sweep on the card: every shape of
+    ``COUNT_MATMUL_SHAPES`` at T = 7 and 15, float32 and bf16 weights,
+    float32 and bf16 results, each launch against the plain version's
+    float32 sum by ``count_matmul_agrees``.  Returns (largest abs
+    difference of a float32 result, largest bf16 steps of a bf16 result
+    from the rounding of the plain sum, launches)."""
+    from repro_torch.kernels import count_matmul as CM
+    from repro_torch.kernels.cases import (COUNT_MATMUL_SHAPES,
+                                           count_matmul_agrees,
+                                           count_matmul_case)
+    err, steps, n = 0.0, 0, 0
+    for M, K, N in COUNT_MATMUL_SHAPES:
+        for T in (7, 15):
+            c, w, sc = (torch.tensor(a, device="cuda") for a in
+                        count_matmul_case(M, K, N, T, seed=M + K + N + T))
+            for wt in (w, w.to(torch.bfloat16)):
+                want = CM.count_matmul_plain(c, wt, sc, T=T,
+                                             out_dtype=torch.float32)
+                for od in (torch.float32, torch.bfloat16):
+                    got = CM.count_matmul_cuda(c, wt, sc, T=T, out_dtype=od)
+                    torch.cuda.synchronize()
+                    ok, st = count_matmul_agrees(got, want)
+                    if not ok or got.shape != (M, N) or got.dtype != od:
+                        raise AssertionError(
+                            f"count_matmul [{M},{K}]x[{K},{N}] T={T} "
+                            f"{wt.dtype}->{od}: kernel disagrees with its "
+                            "plain version")
+                    if od == torch.float32:
+                        err = max(err, float((got - want).abs().max()))
+                    steps, n = max(steps, st), n + 1
+    return err, steps, n
+
+
+def count_matmul_bound(M, K, N, w_bytes, out_bytes):
+    """(bound ms, bound_by) of one count matmul: int8 counts, W, the f32
+    scale and the result each moved once over the HBM rate, or its
+    2 M K N operations over the f32 rate, whichever is larger."""
+    nbytes = M * K + K * N * w_bytes + 4 * K + M * N * out_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K * N / F32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_count_matmul(args, kw, flush):
+    """(kernel ms, plain ms, library ms, bound ms, bound_by) of one count
+    matmul on the given (live) inputs; the library yardstick is
+    ``torch.matmul`` of the decoded float32 activations and float32 W,
+    TF32 off (the decode is done before the clock starts)."""
+    from repro_torch.kernels import count_matmul as CM
+    counts, w, scale = args
+    ms = cuda_ms(lambda: CM.count_matmul_cuda(counts, w, scale, **kw), flush)
+    plain_ms = cuda_ms(lambda: CM.count_matmul_plain(counts, w, scale, **kw),
+                       flush)
+    a = counts.float() * (scale * CM.inv_T(kw["T"]))
+    w32 = w.float()
+    lib_ms = cuda_ms(lambda: torch.matmul(a, w32), flush)
+    (M, K), N = counts.shape, w.shape[1]
+    out_bytes = torch.empty((), dtype=kw["out_dtype"]).element_size()
+    return (ms, plain_ms, lib_ms) + count_matmul_bound(
+        M, K, N, w.element_size(), out_bytes)
+
+
 class LaunchCheck:
     """Check every kernel launch of a kernel-walk engine run against the
     plain version on the same (live) inputs.  Paged decode: o and lse,
     or the wire scale and lse, within float rounding, and the int8 wire
-    within one step.  Boundary kernels: exactly equal.  Keeps the first
-    live inputs of each kernel at each shape (for timing)."""
+    within one step.  Boundary kernels: exactly equal.  Count matmul: by
+    ``count_matmul_agrees`` against the plain version's float32 sum.
+    Keeps the first live inputs of each kernel at each shape (for
+    timing)."""
 
     def __init__(self):
         self.launches = collections.Counter()
         self.flipped = 0         # wire values one step from the plain one
         self.samples = {}        # (kernel, input shape) -> (args, kw)
+        self.cm_off = 0          # bf16 count-matmul outputs off bf16(plain)
+        self.cm_outputs = 0
+        self.cm_steps = 0        # most bf16 steps where the tolerance is
+        #                          finer than half a step
 
     def patches(self):
+        from repro_torch.kernels import count_matmul as CM
         from repro_torch.kernels import paged_decode as PD
-        out = [_Patch(PD, "paged_decode_cuda", self._paged)]
+        out = [_Patch(PD, "paged_decode_cuda", self._paged),
+               _Patch(CM, "count_matmul_cuda", self._count_matmul)]
         for name, (module, attr, plain) in _boundary_fns().items():
             out.append(_Patch(module, attr, self._exact(name, plain)))
+        return out
+
+    def _count_matmul(self, orig, counts, w, scale, **kw):
+        from repro_torch.kernels.cases import count_matmul_agrees
+        from repro_torch.kernels.count_matmul import count_matmul_plain
+        out = orig(counts, w, scale, **kw)
+        want = count_matmul_plain(counts, w, scale, T=kw["T"],
+                                  out_dtype=torch.float32)
+        ok, steps = count_matmul_agrees(out, want)
+        if not ok:
+            raise AssertionError("count_matmul: a live launch disagrees "
+                                 "with the plain version")
+        self.launches["count_matmul"] += 1
+        if out.dtype == torch.bfloat16:
+            self.cm_off += int((out != want.to(out.dtype)).sum())
+            self.cm_outputs += out.numel()
+            self.cm_steps = max(self.cm_steps, steps)
+        key = ("count_matmul", tuple(counts.shape) + (w.shape[1],))
+        if key not in self.samples:
+            self.samples[key] = ([counts.clone(), w.clone(), scale.clone()],
+                                 kw)
         return out
 
     def _exact(self, name, plain):
@@ -416,14 +540,15 @@ class WireTrace:
         return orig(wire, scale, lse, *a, **kw)
 
 
-def first_rounding_splits(tr_f, tr_r):
+def first_rounding_splits(tr_f, tr_r, noise=1e-4):
     """Per request, the first token whose decode step put a different
     coded value on any wire in the two traced runs.  Raises unless each
     such first difference is a rounding split: the values rounded from
-    agree to float noise (spike counts: within 1e-4 of the row's
-    magnitude) or one int8 step (attention partial).  Returns (rid ->
-    token index, wire kind -> [requests split there first, largest
-    relative gap seen at those splits])."""
+    agree to float noise (spike counts: within ``noise`` of the row's
+    magnitude — 1e-4 in float32, one bf16 ulp of the row's largest value,
+    2**-7 of it, in bfloat16) or one int8 step (attention partial).
+    Returns (rid -> token index, wire kind -> [requests split there
+    first, largest relative gap seen at those splits])."""
     if len(tr_f.events) != len(tr_r.events):
         raise AssertionError("the traced runs took different schedules")
     cut, splits = {}, {}
@@ -439,7 +564,7 @@ def first_rounding_splits(tr_f, tr_r):
             cut[rid] = t
             gap = float((pre_f[b] - pre_r[b]).abs().max()
                         / pre_r[b].abs().max().clamp(min=1e-30))
-            limit = 1e-4 if kind == "spike counts" else 1.0 / 127 + 1e-5
+            limit = noise if kind == "spike counts" else 1.0 / 127 + 1e-5
             if gap > limit:
                 raise AssertionError(
                     f"request {rid} token {t}: {kind} differ with values "
@@ -449,14 +574,18 @@ def first_rounding_splits(tr_f, tr_r):
     return cut, splits
 
 
-def serve(cfg, params, requests, kernel, device="cuda", hooks=()):
+def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
+          shadow=False):
     """One engine run; returns (streams, margins, engine, seconds,
     decode-only step times).  ``hooks`` (``LaunchCheck``, ``WireTrace``)
-    watch the run."""
+    watch the run; ``shadow`` turns the count matmul shadow on
+    (``Context.count_matmul_shadow``)."""
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     eng = ServingEngine(cfg, params, EngineConfig(
         num_slots=4, max_seq=256, page_size=16, attn_kernel=kernel),
         device=device)
+    if shadow:
+        eng.ctx = eng.ctx.with_(count_matmul_shadow=True)
     for rid, (prompt, new) in enumerate(requests):
         eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
     out, steps = {}, []
@@ -516,17 +645,21 @@ def check_streams(fused, ref, ref_margins, cut=None):
     return compared, by_split, by_margin
 
 
-def expected_launches(codec, walk, eng):
+def expected_launches(codec, walk, eng, shadow=False):
     """Launches of each kernel in one engine run: paged decode once per
     layer and decode step on the kernel walk; ``lif_encode`` at each of a
     layer's 4 coded boundaries per decode step (2 wire roundtrips, 2
     coded psums) and per prefill (2 coded gathers, 2 coded reduce-
     scatters) under ``spike``; ``pack4`` and ``unpack4`` once per coded
     exchange under ``spike_pack4``: 2 per layer and decode step (the
-    coded psums; a wire roundtrip exchanges nothing) and 4 per prefill."""
+    coded psums; a wire roundtrip exchanges nothing) and 4 per prefill;
+    ``count_matmul`` only with the shadow on: once per consuming weight
+    (5 per layer) per decode step and per prefill."""
     steps, pre = eng.decode_steps, eng.prefills
     want = {"paged_decode": N_LAYERS * steps if walk == "fused" else 0,
-            "lif_encode": 0, "pack4": 0, "unpack4": 0}
+            "lif_encode": 0, "pack4": 0, "unpack4": 0,
+            "count_matmul": (N_LAYERS * SHADOW_WEIGHTS * (steps + pre)
+                             if shadow else 0)}
     if codec == "spike":
         want["lif_encode"] = 4 * N_LAYERS * (steps + pre)
     if codec == "spike_pack4":
@@ -534,30 +667,34 @@ def expected_launches(codec, walk, eng):
     return want
 
 
-def serve_codec(cfg, params, requests, codec):
+def serve_codec(cfg, params, requests, codec, shadow=False):
     """One codec's main path: the kernel-walk run, timed, with every
     launch count set to 0 just before it and read just after; then the
     reference walk and the kernel walk again, traced at every wire, the
-    kernel walk with each launch checked on its live inputs.  Returns
-    (launch counts of the timed run, the ``LaunchCheck``, tokens/s,
-    median decode step ms)."""
+    kernel walk with each launch checked on its live inputs (and, with
+    ``shadow``, the count matmul shadow on, its counts set to 0 just
+    before and read just after).  Returns (launch counts of the timed
+    run, the ``LaunchCheck``, tokens/s, median decode step ms, launch
+    counts of the checked run)."""
     from repro_torch.kernels import ops
     cfg_c = cfg.replace(codec=codec)
+    bf16 = cfg.dtype == torch.bfloat16
+    label = f"hnn/{codec}" + ("/bf16" if bf16 else "")
     ops.reset_launch_counts()
     fused, _, eng, secs, steps = serve(cfg_c, params, requests, "fused")
     launches = ops.launch_counts()
     want = expected_launches(codec, "fused", eng)
     if launches != want or eng.decode_steps == 0:
-        raise AssertionError(f"{codec}: launches {launches}, expected {want} "
+        raise AssertionError(f"{label}: launches {launches}, expected {want} "
                              f"for {eng.decode_steps} decode steps and "
                              f"{eng.prefills} prefills")
     for rid, (prompt, new) in enumerate(requests):
         toks = fused[rid]
         if len(toks) != new or not all(0 <= x < cfg.vocab for x in toks):
-            raise AssertionError(f"{codec} request {rid}: bad stream {toks}")
+            raise AssertionError(f"{label} request {rid}: bad stream {toks}")
     n_tok = sum(len(v) for v in fused.values())
     tok_s, step_ms = n_tok / secs, 1e3 * float(np.median(steps))
-    print(f"serve hnn/{codec} fused: {n_tok} tokens in {secs:.3f} s = "
+    print(f"serve {label} fused: {n_tok} tokens in {secs:.3f} s = "
           f"{tok_s:.1f} tok/s, {eng.decode_steps} decode steps, "
           f"{eng.prefills} prefills, median decode step {step_ms:.3f} ms, "
           f"launches {launches}", flush=True)
@@ -567,36 +704,45 @@ def serve_codec(cfg, params, requests, codec):
     ref, ref_margins, eng_r, secs_r, steps_r = serve(
         cfg_c, params, requests, "reference", hooks=(tr_r,))
     if ops.launch_counts() != expected_launches(codec, "reference", eng_r):
-        raise AssertionError(f"{codec} reference walk: launches "
+        raise AssertionError(f"{label} reference walk: launches "
                              f"{ops.launch_counts()}")
-    print(f"serve hnn/{codec} reference (traced): {n_tok / secs_r:.1f} "
+    print(f"serve {label} reference (traced): {n_tok / secs_r:.1f} "
           f"tok/s, median decode step {1e3 * np.median(steps_r):.3f} ms",
           flush=True)
     tr_f, check = WireTrace(4), LaunchCheck()
+    ops.reset_launch_counts()
     traced, _, eng_t, *_ = serve(cfg_c, params, requests, "fused",
-                                 hooks=(tr_f, check))
+                                 hooks=(tr_f, check), shadow=shadow)
+    checked = ops.launch_counts()
     if traced != fused:
-        raise AssertionError(f"{codec}: two kernel-walk runs gave different "
+        raise AssertionError(f"{label}: two kernel-walk runs gave different "
                              "streams")
-    want_t = expected_launches(codec, "fused", eng_t)
-    if {k: check.launches[k] for k in want_t} != want_t:
-        raise AssertionError(f"{codec}: checked launches {check.launches}, "
-                             f"expected {want_t}")
-    cut, splits = first_rounding_splits(tr_f, tr_r)
+    want_t = expected_launches(codec, "fused", eng_t, shadow)
+    if checked != want_t or {k: check.launches[k] for k in want_t} != want_t:
+        raise AssertionError(f"{label}: checked run launches {checked}, "
+                             f"checked {check.launches}, expected {want_t}")
+    cut, splits = first_rounding_splits(tr_f, tr_r,
+                                        2.0**-7 if bf16 else 1e-4)
     first = ", ".join(f"{n} at {kind} (values rounded from within "
                       f"{gap:.2g} of each other)"
                       for kind, (n, gap) in sorted(splits.items()))
     compared, by_split, by_margin = check_streams(fused, ref, ref_margins,
                                                   cut)
-    print(f"streams hnn/{codec}: launches checked on live inputs "
+    shadowed = (f"; count matmul shadow: {check.launches['count_matmul']} "
+                f"launches checked, {check.cm_off} of {check.cm_outputs} "
+                f"bf16 outputs one or more bf16 steps from the rounding of "
+                f"the plain float32 sum (at most {check.cm_steps} where the "
+                "tolerance is finer than half a step), served streams "
+                "unchanged" if shadow else "")
+    print(f"streams {label}: launches checked on live inputs "
           f"{dict(check.launches)} ({check.flipped} paged-decode wire values "
           f"one step from the plain version's, every boundary-kernel launch "
-          f"exact); fused == reference on {compared} of {n_tok} tokens: "
-          f"{by_split} requests compared up to the first coded value that "
-          f"rounded the other way [{first}], {by_margin} up to a margin <= "
-          f"{MARGIN}",
+          f"exact{shadowed}); fused == reference on {compared} of {n_tok} "
+          f"tokens: {by_split} requests compared up to the first coded value "
+          f"that rounded the other way [{first}], {by_margin} up to a margin "
+          f"<= {MARGIN}",
           flush=True)
-    return launches, check, tok_s, step_ms
+    return launches, check, tok_s, step_ms, checked
 
 
 def main() -> int:
@@ -659,6 +805,13 @@ def main() -> int:
     for name in BOUNDARY_KERNELS:
         print(f"check {name}: conformance cases and serve shapes exact "
               f"(max abs err {errs[name]:.3g})", flush=True)
+    cm_err, cm_steps, cm_n = check_count_matmul()
+    errs["count_matmul"] = cm_err
+    print(f"check count_matmul: {cm_n} conformance launches agree with the "
+          f"plain version (float32 results: max abs err {cm_err:.3g}; bf16 "
+          f"results at most {cm_steps} bf16 steps from the rounding of the "
+          "plain float32 sum where the tolerance is finer than half a "
+          "step)", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
@@ -686,6 +839,19 @@ def main() -> int:
 
     runs.update((codec, serve_codec(cfg, params, requests, codec))
                 for codec in CODECS[1:])
+
+    # the published dtype, bfloat16, under ``spike``: lif_encode in its
+    # bf16 mode, and the count matmul shadow on the live wire counts
+    cfg16 = get_config("qwen1.5-0.5b")
+    if cfg16.dtype != torch.bfloat16 or cfg16.replace(
+            dtype=torch.float32) != cfg:
+        raise AssertionError(f"unexpected bf16 serving config {cfg16}")
+    gen16 = torch.Generator(device="cuda").manual_seed(0)
+    params16 = init_params(model_defs(cfg16), gen16, cfg16.dtype,
+                           device="cuda")
+    serve(cfg16, params16, [(p, 4) for p, _ in requests[:2]], "fused")
+    runs["spike/bf16"] = serve_codec(cfg16, params16, requests, "spike",
+                                     shadow=True)
     print(json.dumps({"serve": {codec: {"tok_s": r[2], "median_step_ms": r[3]}
                                 for codec, r in runs.items()}}), flush=True)
 
@@ -707,19 +873,27 @@ def main() -> int:
             "unpack4": "spike_pack4"}
     for name in BOUNDARY_KERNELS:
         launches, check = runs[home[name]][:2]
-        shapes = sorted(shape for k, shape in check.samples if k == name)
-        if len(shapes) != 2:
-            raise AssertionError(f"{name}: live shapes {shapes}, expected "
-                                 "one decode and one prefill shape")
+        # lif_encode also in its bf16 mode, on the bf16 run's inputs
+        checks = [check] + ([runs["spike/bf16"][1]]
+                            if name == "lif_encode" else [])
         by_shape = []
-        for shape in shapes:
-            args, kw = check.samples[name, shape]
-            k_ms, p_ms, b_ms, b_by = time_boundary(name, args, kw, flush)
-            by_shape.append({"shape": list(shape), "ms": k_ms,
-                             "plain_ms": p_ms, "bound_ms": b_ms,
-                             "bound_by": b_by})
-            print(f"{name} at {list(shape)}: kernel {k_ms:.5f} ms, plain "
-                  f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+        for chk in checks:
+            shapes = sorted(shape for k, shape in chk.samples if k == name)
+            if len(shapes) != 2:
+                raise AssertionError(f"{name}: live shapes {shapes}, "
+                                     "expected one decode and one prefill "
+                                     "shape")
+            for shape in shapes:
+                args, kw = chk.samples[name, shape]
+                k_ms, p_ms, b_ms, b_by = time_boundary(name, args, kw, flush)
+                mode = {"math_dtype": str(kw["math_dtype"])[6:]} if (
+                    "math_dtype" in kw) else {}
+                by_shape.append({"shape": list(shape), **mode, "ms": k_ms,
+                                 "plain_ms": p_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by})
+                print(f"{name} at {list(shape)} {mode}: kernel {k_ms:.5f} "
+                      f"ms, plain {p_ms:.5f} ms, bound {b_ms:.6f} ms "
+                      f"({b_by})", flush=True)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -727,6 +901,34 @@ def main() -> int:
                                            if k != "shape"},
             "library_ms": None, "shape": by_shape[0]["shape"],
             "by_shape": by_shape})
+
+    # the count matmul on the bf16 spike run's live wire counts, at the
+    # decode and the prefill shape of the MLP input ([M, 1024] x
+    # [1024, 2816], bf16 W and result)
+    check, cm_launches = runs["spike/bf16"][1], runs["spike/bf16"][4]
+    by_shape = []
+    for M in (4, 256):
+        key = ("count_matmul", (M, cfg.d_model, cfg.d_ff))
+        if key not in check.samples:
+            raise AssertionError(f"count_matmul: no live launch at {key[1]}; "
+                                 f"saw {sorted(k for k in check.samples)}")
+        args, kw = check.samples[key]
+        k_ms, p_ms, l_ms, b_ms, b_by = time_count_matmul(args, kw, flush)
+        by_shape.append({"shape": list(key[1]), "ms": k_ms, "plain_ms": p_ms,
+                         "library_ms": l_ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+        print(f"count_matmul at [{M},{cfg.d_model}]x[{cfg.d_model},"
+              f"{cfg.d_ff}] bf16: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, "
+              f"matmul {l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by})",
+              flush=True)
+    kernels.append({
+        "name": "count_matmul", "route": "cuda",
+        "source": SOURCE["count_matmul"],
+        "replaces": REPLACES["count_matmul"],
+        "launches": cm_launches["count_matmul"],
+        "max_abs_err": errs["count_matmul"],
+        **{k: v for k, v in by_shape[0].items() if k != "shape"},
+        "shape": by_shape[0]["shape"], "by_shape": by_shape})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,6 +19,14 @@ autograd of the local encode/decode (straight-through rounding and the
 surrogate gate from ``core.spike``), which is what the reference's
 custom VJPs compute at one shard; the ``sparse_topk`` gather, whose VJP
 is not ported, raises when a gradient is wanted.
+
+``wire_roundtrip`` and ``coded_all_gather`` take the weights that
+consume their decoded output (``consumers``; empty by default).  Under a
+spike-count codec each such weight then also runs ``ops.count_matmul``
+on the int8 counts of the wire — the receiving die's first matmul with
+the rate decode fused — and drops the result: the served value stays
+decode-then-matmul, as in the reference, whose models never call the
+count matmul.  It is a shadow that puts the kernel on live traffic.
 """
 from __future__ import annotations
 
@@ -26,11 +34,14 @@ import dataclasses
 
 import torch
 
+from ..kernels import ops as kops
 from . import spike
 from .spike import SpikeConfig
 
 _MODES = ("none", "int8", "spike", "spike_fused", "spike_pack4",
           "sparse_topk")
+#: the modes whose wire carries dense spike counts
+COUNT_MODES = ("spike", "spike_fused", "spike_pack4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +111,7 @@ def _decode_local(wire, params, codec: BoundaryCodec, scale_i8, dtype):
     return spike.decode(counts, params, codec.cfg, dtype)
 
 
-def _local_roundtrip(x, params, codec: BoundaryCodec):
+def _local_roundtrip(x, params, codec: BoundaryCodec, consumers=()):
     """Differentiable local view of encode -> wire -> decode."""
     if codec.mode == "int8":
         amax = torch.amax(torch.abs(x), dim=tuple(range(x.ndim - 1)),
@@ -108,7 +119,29 @@ def _local_roundtrip(x, params, codec: BoundaryCodec):
         s = torch.clamp(amax, min=1e-6) / 127.0
         return spike.round_ste(x / s) * s
     counts = spike.encode(x, params, codec.cfg)
+    count_matmul_shadow(counts, params, codec, consumers, x.dtype)
     return spike.decode(counts, params, codec.cfg, x.dtype)
+
+
+def _check_consumers(codec: BoundaryCodec, consumers):
+    if consumers and codec.mode not in COUNT_MODES:
+        raise ValueError(f"count matmul on a {codec.mode!r} wire: it takes "
+                         f"spike counts ({', '.join(COUNT_MODES)})")
+
+
+def count_matmul_shadow(counts, params, codec: BoundaryCodec, consumers,
+                        dtype):
+    """For each weight [K, N] in ``consumers``, launch
+    ``ops.count_matmul`` on the wire's counts [..., K] as int8 rows, with
+    the decode's scale ``exp(log_scale)`` in ``dtype`` and the result in
+    ``dtype``; the results are dropped (see the module docstring)."""
+    if not consumers:
+        return
+    K = counts.shape[-1]
+    c8 = counts.reshape(-1, K).to(torch.int8)
+    scale = torch.exp(params["log_scale"]).to(dtype)
+    for w in consumers:
+        kops.count_matmul(c8, w, scale, T=codec.cfg.T, out_dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -167,15 +200,19 @@ def _topk_all_gather(x, params, codec: BoundaryCodec):
 
 
 def coded_all_gather(x, params, codec: BoundaryCodec, axis: int = 0,
-                     world_size: int = 1):
+                     world_size: int = 1, consumers=()):
     """Token-axis all_gather over one rank: the local encode -> wire ->
-    decode of the reference's coded gather (per-channel int8 scales)."""
+    decode of the reference's coded gather (per-channel int8 scales).
+    ``consumers``: the weights that take the gathered value, each run
+    through the count matmul shadow."""
     _check(codec, world_size)
+    _check_consumers(codec, consumers)
     if codec.mode == "none":
         return x
     if codec.mode == "sparse_topk":
         return _topk_all_gather(x, params, codec)
-    wire, s8, _ = _encode_local(x, params, codec)
+    wire, s8, counts = _encode_local(x, params, codec)
+    count_matmul_shadow(counts, params, codec, consumers, x.dtype)
     return _decode_local(wire, params, codec, s8, x.dtype)
 
 
@@ -202,9 +239,12 @@ def coded_psum_scatter(x, params, codec: BoundaryCodec, axis: int = 0,
 # neighbours in the batch.
 
 
-def wire_roundtrip(x, params, codec: BoundaryCodec):
-    """Local encode -> wire -> decode for a replicated decode activation."""
+def wire_roundtrip(x, params, codec: BoundaryCodec, consumers=()):
+    """Local encode -> wire -> decode for a replicated decode activation.
+    ``consumers``: the weights that take the decoded value, each run
+    through the count matmul shadow."""
     _check(codec)
+    _check_consumers(codec, consumers)
     if codec.mode == "none":
         return x
     if codec.mode == "int8":
@@ -213,7 +253,7 @@ def wire_roundtrip(x, params, codec: BoundaryCodec):
         return (spike.round_ste(x / s) * s).to(x.dtype)
     if codec.mode == "sparse_topk":
         return _topk_local(x, params, codec)
-    return _local_roundtrip(x, params, codec)
+    return _local_roundtrip(x, params, codec, consumers)
 
 
 def coded_psum(x, params, codec: BoundaryCodec, world_size: int = 1):

@@ -176,17 +176,17 @@ def encode(x, params: dict, cfg: SpikeConfig):
     the gate ``theta/scale``: through ``lif_rate_encode_signed`` when a
     gradient is wanted (CPU tensors only; training is not ported to the
     card), else through the ``lif_encode`` kernel, whose counts are the
-    same.  It takes float32 activations only: for bf16
-    the reference divides and integrates in bf16, which the kernel
-    (f32, as the TPU kernel) does not reproduce."""
+    same.  Like the reference it computes in the activation's dtype,
+    float32 or bfloat16: on a bf16 activation every op is rounded to
+    bf16 (the kernel's bf16 mode)."""
     scale = torch.exp(params["log_scale"]).to(x.dtype)
     theta = params["theta"].to(x.dtype)
     if not cfg.faithful:
         return rate_encode_signed(x, scale, theta, cfg.T)
-    if x.dtype != torch.float32:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
             f"faithful IF encoder on {x.dtype} activations: not ported "
-            "(the reference integrates in that dtype; the port serves f32)")
+            "(the kernel computes in float32 or bfloat16)")
     if needs_grad(x, params["theta"], params["log_scale"]):
         if x.device.type != "cpu":
             raise NotImplementedError(
@@ -195,7 +195,8 @@ def encode(x, params: dict, cfg: SpikeConfig):
                 "yet; the autograd path runs on CPU tensors only")
         return lif_rate_encode_signed(x / scale, theta / scale, cfg.T)
     C = x.shape[-1]
-    counts = kops.lif_encode(x.reshape(-1, C), theta, scale, T=cfg.T)
+    counts = kops.lif_encode(x.reshape(-1, C), theta, scale, T=cfg.T,
+                             math_dtype=x.dtype)
     return counts.reshape(x.shape).to(x.dtype)
 
 

@@ -25,6 +25,16 @@
 // is one IEEE division per element, the same correctly rounded f32
 // value the codec computes per channel.
 //
+// bf16 mode (`math_bf16` = 1), for bfloat16 activations: the JAX codec
+// then computes in the activation's dtype, and XLA rounds every op to
+// bf16. So the kernel rounds x, theta and scale to bf16 and applies
+// __float2bfloat16_rn after each divide, subtract and add, and to each
+// operand it compares: xn = bf16(x / s), thn = bf16(theta / s), the gate
+// bf16(|xn| - thn) >= 0, each tick u = bf16(u + d), fire on
+// bf16(u - 1) >= 0, u = bf16(u - 1). Every op is an f32 op on bf16
+// values followed by one rounding, the same value PyTorch's bf16 ops
+// give on the CPU and the card.
+//
 // Exactness: the divisions are IEEE (never build with --use_fast_math,
 // -prec-div=false or -ftz=true); the tick loop has no multiply, so no
 // FMA contraction can change it.
@@ -49,24 +59,32 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// The value of an op's f32 result in the compute type: itself in f32,
+// rounded to the nearest bf16 (ties to even) in bf16 mode.
+template <bool kBf16>
+__device__ __forceinline__ float rnd(float v) {
+  return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
 __device__ __forceinline__ float clip01(float v) {
   return v > 0.0f ? (v < 1.0f ? v : 1.0f) : 0.0f;
 }
 
+template <bool kBf16>
 __device__ __forceinline__ int if_count(float drive, int T) {
   float u = 0.5f;
   int count = 0;
   for (int t = 0; t < T; ++t) {
-    u = u + drive;
-    if (u >= 1.0f) {
-      u = u - 1.0f;
+    u = rnd<kBf16>(u + drive);
+    if (rnd<kBf16>(u - 1.0f) >= 0.0f) {
+      u = rnd<kBf16>(u - 1.0f);
       ++count;
     }
   }
   return count;
 }
 
-template <typename X>
+template <typename X, bool kBf16>
 __global__ void __launch_bounds__(kThreads) lif_encode_kernel(
     const X* __restrict__ x, const float* __restrict__ theta,
     const float* __restrict__ scale, int8_t* __restrict__ out, long n,
@@ -74,29 +92,42 @@ __global__ void __launch_bounds__(kThreads) lif_encode_kernel(
   long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int c = (int)(i % C);
-  const float s = scale[c];
-  const float xn = to_f32(x[i]) / s;
-  const float thn = theta[c] / s;
+  const float s = rnd<kBf16>(scale[c]);
+  const float xn = rnd<kBf16>(rnd<kBf16>(to_f32(x[i])) / s);
+  const float thn = rnd<kBf16>(rnd<kBf16>(theta[c]) / s);
   const float a = fabsf(xn);
-  const int count = a - thn >= 0.0f ? if_count(clip01(a), T) : 0;
+  const int count =
+      rnd<kBf16>(a - thn) >= 0.0f ? if_count<kBf16>(clip01(a), T) : 0;
   out[i] = (int8_t)(xn < 0.0f ? -count : count);
+}
+
+template <typename X>
+void launch(const void* x, const float* theta, const float* scale,
+            int8_t* out, long n, int C, int T, int math_bf16,
+            cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  const X* xt = static_cast<const X*>(x);
+  if (math_bf16)
+    lif_encode_kernel<X, true><<<blocks, kThreads, 0, stream>>>(
+        xt, theta, scale, out, n, C, T);
+  else
+    lif_encode_kernel<X, false><<<blocks, kThreads, 0, stream>>>(
+        xt, theta, scale, out, n, C, T);
 }
 
 }  // namespace
 
 // x [M, C] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); theta, scale [C] f32;
-// out [M, C] int8. Launches on `stream`; returns cudaGetLastError().
+// out [M, C] int8; math_bf16 = 1 computes in bf16 (see above), 0 in f32.
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int lif_encode_launch(const void* x, const float* theta,
                                  const float* scale, int8_t* out, long M,
-                                 int C, int T, int x_bf16,
+                                 int C, int T, int x_bf16, int math_bf16,
                                  cudaStream_t stream) {
   const long n = M * (long)C;
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   if (x_bf16)
-    lif_encode_kernel<__nv_bfloat16><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), theta, scale, out, n, C, T);
+    launch<__nv_bfloat16>(x, theta, scale, out, n, C, T, math_bf16, stream);
   else
-    lif_encode_kernel<float><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const float*>(x), theta, scale, out, n, C, T);
+    launch<float>(x, theta, scale, out, n, C, T, math_bf16, stream);
   return (int)cudaGetLastError();
 }

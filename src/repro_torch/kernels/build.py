@@ -22,7 +22,7 @@ CSRC = _PKG / "csrc"
 #: library name -> source file under csrc/ (``pack4.cu`` holds both the
 #: pack and the unpack kernel)
 SOURCES = {"paged_decode": "paged_decode.cu", "lif_encode": "lif_encode.cu",
-           "pack4": "pack4.cu"}
+           "count_matmul": "count_matmul.cu", "pack4": "pack4.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,7 +14,11 @@ from a numpy ``RandomState`` or built exactly:
   encoder and the closed form part); zeros, -0.0, saturation and zero
   thresholds;
 * ``pack4`` / ``unpack4``: every byte value, and random 4-bit wires of
-  ragged row counts.
+  ragged row counts;
+* ``count_matmul``: counts spanning -T..T with all-zero rows and
+  columns, random weights and positive scales, over ragged and serve
+  shapes, with the agreement rule its checks share
+  (``count_matmul_agrees``).
 """
 from __future__ import annotations
 
@@ -160,3 +164,66 @@ def pack4_case(name):
         return np.arange(256, dtype=np.uint8).reshape(8, 32)
     shape = {"wire_ragged": (37, 18), "wire_row": (1, 2048)}[name]
     return np.random.RandomState(3).randint(0, 15, shape).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# count_matmul
+# ---------------------------------------------------------------------------
+
+#: (M, K, N) of the card's conformance sweep: decode rows (1, 4), a ragged
+#: batch (33) and a prefill (256); K and N ragged and at the serve widths
+COUNT_MATMUL_SHAPES = tuple((M, K, N) for M in (1, 4, 33, 256)
+                            for K in (128, 300, 1024)
+                            for N in (200, 1024, 2816))
+#: rtol = atol of a float32 result (``tests/test_kernels.py``)
+COUNT_MATMUL_TOL = 2e-5
+
+
+def count_matmul_case(M, K, N, T, seed=0):
+    """``(counts int8 [M, K], w f32 [K, N], scale f32 [K])``: counts
+    uniform in -T..T with every third row (from the second) and every
+    fifth column (from the first) all zero; w normal with the standard
+    deviation 0.02 of the model's projections at init
+    (``models.params.pdef``), so the sums have the magnitudes of served
+    traffic; scale in [0.5, 2)."""
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(-T, T + 1, (M, K)).astype(np.int8)
+    counts[1::3] = 0
+    counts[:, ::5] = 0
+    w = (0.02 * rng.standard_normal((K, N))).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, K).astype(np.float32)
+    return counts, w, scale
+
+
+def count_matmul_agrees(got, want32, tol=COUNT_MATMUL_TOL):
+    """Whether ``got`` (f32 or bf16) agrees with a float32 sum ``want32``
+    of the same product: f32 within rtol = atol = ``tol``; bf16 the
+    rounding of some f32 value within that tolerance of ``want32`` — the
+    same value, or one bf16 step apart where the two f32 sums round
+    differently, and more only where the tolerance itself spans several
+    bf16 steps (sums that cancel to within a few atol of 0).  Returns
+    ``(ok, steps)``: for bf16, the largest number of bf16 steps between
+    ``got`` and ``bf16(want32)`` among the outputs whose tolerance is
+    finer than half a bf16 step (at most 1 for a right kernel), else
+    0."""
+    want32 = want32.float()
+    slack = tol + tol * want32.abs()
+    if got.dtype == torch.float32:
+        return bool(((got - want32).abs() <= slack).all()), 0
+    lo, hi = (want32 - slack).to(got.dtype), (want32 + slack).to(got.dtype)
+    ok = bool(((got >= lo) & (got <= hi)).all())
+    _, e = torch.frexp(want32)
+    fine = (slack < torch.ldexp(torch.full_like(want32, 0.5), e - 8)) & (
+        want32 != 0)
+    return ok, bf16_steps(got[fine], want32.to(got.dtype)[fine])
+
+
+def bf16_steps(a, b):
+    """The largest number of representable bf16 values between ``a`` and
+    ``b`` (bf16 tensors of one shape), counted across 0."""
+    def ordinal(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    if a.numel() == 0:
+        return 0
+    return int((ordinal(a) - ordinal(b)).abs().max())

@@ -16,6 +16,15 @@ normalised ones, and the two differ only where ``fl(|x|/s) ==
 fl(theta/s)`` while ``|x| < theta``.  The port follows the codec, so
 the served counts are the JAX package's bit for bit.
 
+Two compute types.  In float32 (the default) the kernel computes as
+the TPU kernel does.  In bfloat16 (``math_dtype=torch.bfloat16``) it
+computes as the JAX codec does on a bf16 activation, where every op of
+the encoder is rounded to bf16: x, theta and scale are rounded to bf16,
+then ``x/s``, ``theta/s``, the gate's ``|x/s| - theta/s``, each tick's
+``u + d`` and ``u - 1`` and the reset are each rounded to bf16 — which
+is what PyTorch's bf16 ops compute, so the plain version runs the same
+code on bf16 tensors.
+
 The CUDA kernel (``csrc/lif_encode.cu``) runs one thread per element
 with the tick loop in registers.  At most one population of an element
 can fire (the other's drive is 0, and a membrane of 0.5 never reaches
@@ -35,6 +44,7 @@ import torch
 from . import build
 
 F32 = torch.float32
+BF16 = torch.bfloat16
 
 
 def heaviside(v):
@@ -57,11 +67,15 @@ def if_count(drive, T: int, step=heaviside):
     return count
 
 
-def lif_encode_plain(x, theta, scale, *, T: int = 15):
-    """x [M, C] float -> int8 signed counts [M, C]; theta, scale [C]."""
-    s = scale.to(F32)
-    xn = x.to(F32) / s
-    gate = (torch.abs(xn) - theta.to(F32) / s) >= 0.0
+def lif_encode_plain(x, theta, scale, *, T: int = 15, math_dtype=F32):
+    """x [M, C] float -> int8 signed counts [M, C]; theta, scale [C];
+    every op computed in ``math_dtype`` (float32 or bfloat16)."""
+    if math_dtype not in (F32, BF16):
+        raise ValueError(f"lif_encode: math_dtype must be float32 or "
+                         f"bfloat16, got {math_dtype}")
+    s = scale.to(math_dtype)
+    xn = x.to(math_dtype) / s
+    gate = (torch.abs(xn) - theta.to(math_dtype) / s) >= 0.0
     c = (if_count(torch.clamp(xn, 0.0, 1.0), T)
          - if_count(torch.clamp(-xn, 0.0, 1.0), T))
     return torch.where(gate, c, torch.zeros_like(c)).to(torch.int8)
@@ -71,7 +85,7 @@ def _library():
     fn = build.load("lif_encode").lif_encode_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        fn.argtypes = [P, P, P, P, L, I, I, I, P]
+        fn.argtypes = [P, P, P, P, L, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -81,16 +95,19 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"lif_encode_cuda: {msg}")
 
 
-def lif_encode_cuda(x, theta, scale, *, T: int = 15):
+def lif_encode_cuda(x, theta, scale, *, T: int = 15, math_dtype=F32):
     """Launch the CUDA kernel on the current stream; same contract as
     ``lif_encode_plain``.  ``x`` f32 or bf16 [M, C] with M*C > 0;
-    ``theta``, ``scale`` f32 [C]; all contiguous on one CUDA device.
-    Raises on anything else and when the launch is refused."""
+    ``theta``, ``scale`` f32 [C]; all contiguous on one CUDA device;
+    ``math_dtype`` f32 or bf16.  Raises on anything else and when the
+    launch is refused."""
     dev = x.device
+    _require(math_dtype in (F32, BF16), f"math_dtype must be float32 or "
+             f"bfloat16, got {math_dtype}")
     _require(dev.type == "cuda", f"x lies on {dev}, not a CUDA device")
     _require(theta.device == dev and scale.device == dev,
              "tensors lie on different devices")
-    _require(x.dtype in (F32, torch.bfloat16),
+    _require(x.dtype in (F32, BF16),
              f"x must be float32 or bfloat16, got {x.dtype}")
     _require(theta.dtype == F32 and scale.dtype == F32,
              f"theta and scale must be float32, got {theta.dtype}/"
@@ -106,7 +123,7 @@ def lif_encode_cuda(x, theta, scale, *, T: int = 15):
     out = torch.empty((M, C), dtype=torch.int8, device=dev)
     err = _library()(
         x.data_ptr(), theta.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, C, int(T), int(x.dtype == torch.bfloat16),
+        M, C, int(T), int(x.dtype == BF16), int(math_dtype == BF16),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lif_encode kernel launch failed: CUDA error "

@@ -9,6 +9,9 @@ that its main path went through the kernel.
 """
 from __future__ import annotations
 
+import torch
+
+from . import count_matmul as CM
 from . import lif_encode as LE
 from . import pack4 as PK
 from . import paged_decode as PD
@@ -44,16 +47,35 @@ def paged_flash_decode(q, k_pool, v_pool, cl_page, cl_pos, qpos, *,
     return out
 
 
-def lif_encode(x, theta, scale, *, T: int = 15):
+def lif_encode(x, theta, scale, *, T: int = 15, math_dtype=torch.float32):
     """T-tick on/off IF rate encoder: x [M, C] -> int8 counts [M, C],
     gated on ``|x/scale| >= theta/scale``; theta, scale [C], taken as
-    float32 (as the TPU kernel casts them)."""
+    float32 (as the TPU kernel casts them).  ``math_dtype`` float32 is
+    the TPU kernel's arithmetic; bfloat16 rounds every op to bf16, as the
+    JAX codec computes on a bf16 activation."""
     theta, scale = theta.float(), scale.float()
     if not _on_cuda("lif_encode", x):
-        return LE.lif_encode_plain(x, theta, scale, T=T)
+        return LE.lif_encode_plain(x, theta, scale, T=T,
+                                   math_dtype=math_dtype)
     out = LE.lif_encode_cuda(x.contiguous(), theta.contiguous(),
-                             scale.contiguous(), T=T)
+                             scale.contiguous(), T=T, math_dtype=math_dtype)
     lif_encode.launches += 1
+    return out
+
+
+def count_matmul(counts, w, scale, *, T: int = 15,
+                 out_dtype=torch.bfloat16):
+    """int8 spike counts [M, K] x w [K, N] (float32 or bfloat16) with
+    the rate decode fused: ``(counts * (scale * f32(1/T))) @ w``, summed
+    in float32 and rounded once to ``out_dtype``; scale [K], taken as
+    float32."""
+    scale = scale.float()
+    if not _on_cuda("count_matmul", counts):
+        return CM.count_matmul_plain(counts, w, scale, T=T,
+                                     out_dtype=out_dtype)
+    out = CM.count_matmul_cuda(counts.contiguous(), w.contiguous(),
+                               scale.contiguous(), T=T, out_dtype=out_dtype)
+    count_matmul.launches += 1
     return out
 
 
@@ -76,7 +98,8 @@ def unpack4(packed):
 
 
 _WRAPPERS = {"paged_decode": paged_flash_decode, "lif_encode": lif_encode,
-             "pack4": pack4, "unpack4": unpack4}
+             "count_matmul": count_matmul, "pack4": pack4,
+             "unpack4": unpack4}
 
 
 def launch_counts() -> dict:

@@ -98,6 +98,12 @@ def _rope(cfg, x, positions):
     raise NotImplementedError(f"rope_kind={cfg.rope_kind!r}: not ported")
 
 
+def _consumers(ctx: Context, p, *names):
+    """The weights that consume a boundary's decoded output, for the
+    count matmul shadow; none unless ``ctx.count_matmul_shadow``."""
+    return tuple(p[n] for n in names) if ctx.count_matmul_shadow else ()
+
+
 def _check_mode(cfg):
     if cfg.hnn_mode == "snn":
         raise NotImplementedError("hnn_mode='snn': not ported yet")
@@ -116,7 +122,9 @@ def attn_fwd(p, x, ctx: Context, aux, kind="attn"):
     d = attn_dims(cfg)
     dh = d["dh"]
     h = common.norm(x, p["ln"], cfg.norm)
-    xg = boundary.coded_all_gather(h, p["sp_in"], ctx.codec, axis=1)
+    xg = boundary.coded_all_gather(
+        h, p["sp_in"], ctx.codec, axis=1,
+        consumers=_consumers(ctx, p, "wq", "wk", "wv"))
     B, S, _ = xg.shape
     q = xg @ p["wq"]
     k = xg @ p["wk"]
@@ -148,11 +156,14 @@ def mlp_fwd(p, x, ctx: Context):
     h = common.norm(x, p["ln2"], cfg.norm)
     if ctx.mode == "decode":
         # tokens replicated: roundtrip in, spike-accumulated psum out
-        h = boundary.wire_roundtrip(h, p["sp_in2"], ctx.codec)
+        h = boundary.wire_roundtrip(h, p["sp_in2"], ctx.codec,
+                                    consumers=_consumers(ctx, p, "w1", "w3"))
         hh = common.act_fn(h @ p["w1"], cfg.act) * (h @ p["w3"])
         y = boundary.coded_psum(hh @ p["w2"], p["sp_out2"], ctx.codec)
     else:
-        xg = boundary.coded_all_gather(h, p["sp_in2"], ctx.codec, axis=1)
+        xg = boundary.coded_all_gather(
+            h, p["sp_in2"], ctx.codec, axis=1,
+            consumers=_consumers(ctx, p, "w1", "w3"))
         hh = common.act_fn(xg @ p["w1"], cfg.act) * (xg @ p["w3"])
         y = boundary.coded_psum_scatter(hh @ p["w2"], p["sp_out2"],
                                         ctx.codec, axis=1)
@@ -284,7 +295,8 @@ def attn_decode_fwd(p, x, cache, pos, ctx: Context, aux, kind="attn"):
             "dense per-slot decode cache: the port decodes over the paged "
             "pool only (pass aux['block_table'])")
     h = common.norm(x, p["ln"], cfg.norm)
-    h = boundary.wire_roundtrip(h, p["sp_in"], ctx.codec)
+    h = boundary.wire_roundtrip(h, p["sp_in"], ctx.codec,
+                                consumers=_consumers(ctx, p, "wq", "wk", "wv"))
     q = h @ p["wq"]
     k_new = h @ p["wk"]
     v_new = h @ p["wv"]

@@ -46,6 +46,11 @@ class Context:
     codec: BoundaryCodec
     mode: str = "train"            # train|prefill|decode
     is_encoder: bool = False       # non-causal attention
+    #: run ``ops.count_matmul`` on the spike counts of every boundary
+    #: whose decoded output feeds a projection, once per weight, beside
+    #: the served decode-then-matmul (``core.boundary``; a check of the
+    #: kernel on live traffic, not a reference feature)
+    count_matmul_shadow: bool = False
 
     def with_(self, **kw):
         return dataclasses.replace(self, **kw)

@@ -9,15 +9,23 @@ no JAX, so it collects where only PyTorch is installed.
   inputs, for every conformance case, f32 and bf16 pools, with and
   without the int8 wire epilogue (o and lse within 2e-5; the wire within
   one quantization step).
-* The ``lif_encode``, ``pack4`` and ``unpack4`` kernels against their
-  plain versions on every conformance case, exactly (integer outputs).
+* The ``lif_encode`` (float32 and bf16 compute types), ``pack4`` and
+  ``unpack4`` kernels against their plain versions on every conformance
+  case, exactly (integer outputs).
+* The ``count_matmul`` kernel against its plain version's float32 sum on
+  its conformance sweep (``count_matmul_agrees``: float32 results within
+  rtol = atol = 2e-5, bf16 results the rounding of a float32 sum within
+  that), TF32 off.
 * The reduced model served on the card: kernel walk and reference walk
   give the same greedy streams under the margin rule, and the kernel
   ran once per layer per decode step.  In bfloat16 (the configs'
   default dtype) the kernel walk serves with the same launch count and
   frees every page; its streams are not compared, since bf16 rounding
   ties flip argmax.  With the ``spike`` and ``spike_pack4`` codecs the
-  boundary kernels run once per coded boundary site.
+  boundary kernels run once per coded boundary site; in bf16 under
+  ``spike`` with the count matmul shadow on, ``count_matmul`` runs five
+  times per layer per decode step and prefill and the streams equal
+  those served without it.
 """
 import numpy as np
 import pytest
@@ -26,8 +34,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
-    CASES, LIF_CASES, PACK4_CASES, case_arrays, lif_tensors, pack4_case,
+    CASES, COUNT_MATMUL_SHAPES, LIF_CASES, PACK4_CASES, case_arrays,
+    count_matmul_agrees, count_matmul_case, lif_tensors, pack4_case,
     to_tensors)
+from repro_torch.kernels.count_matmul import count_matmul_plain  # noqa: E402
 from repro_torch.kernels.lif_encode import lif_encode_plain  # noqa: E402
 from repro_torch.kernels.pack4 import pack4_plain, unpack4_plain  # noqa: E402
 from repro_torch.kernels.paged_decode import paged_decode_plain  # noqa: E402
@@ -69,6 +79,38 @@ def test_lif_encode_matches_plain_on_card(name):
     got = ops.lif_encode(x, theta, scale, T=T)
     assert ops.launch_counts()["lif_encode"] == before + 1
     assert torch.equal(got, lif_encode_plain(x, theta, scale, T=T))
+
+
+@pytest.mark.parametrize("name", LIF_CASES)
+def test_lif_encode_bf16_mode_matches_plain_on_card(name):
+    _require_cuda()
+    x, theta, scale, T = lif_tensors(name, "cuda")
+    bf = torch.bfloat16
+    got = ops.lif_encode(x, theta, scale, T=T, math_dtype=bf)
+    assert torch.equal(got, lif_encode_plain(x, theta, scale, T=T,
+                                             math_dtype=bf))
+
+
+@pytest.mark.parametrize("T", [7, 15])
+@pytest.mark.parametrize("M", sorted({m for m, _, _ in COUNT_MATMUL_SHAPES}))
+def test_count_matmul_matches_plain_on_card(M, T):
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for m, K, N in COUNT_MATMUL_SHAPES:
+        if m != M:
+            continue
+        c, w, sc = (torch.tensor(a, device="cuda") for a in
+                    count_matmul_case(M, K, N, T, seed=M + K + N + T))
+        for wt in (w, w.to(torch.bfloat16)):
+            want = count_matmul_plain(c, wt, sc, T=T,
+                                      out_dtype=torch.float32)
+            for od in (torch.float32, torch.bfloat16):
+                before = ops.launch_counts()["count_matmul"]
+                got = ops.count_matmul(c, wt, sc, T=T, out_dtype=od)
+                assert ops.launch_counts()["count_matmul"] == before + 1
+                assert got.dtype == od and got.shape == (M, N)
+                assert count_matmul_agrees(got, want)[0], (K, N, wt.dtype,
+                                                           od)
 
 
 @pytest.mark.parametrize("name", PACK4_CASES)
@@ -172,3 +214,34 @@ def test_engine_on_card_bf16_serves():
     for r in reqs:
         assert len(out[r.rid]) == 6
         assert all(0 <= t < cfg.vocab for t in out[r.rid])
+
+
+def test_engine_on_card_bf16_spike_count_matmul_shadow():
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = reduced(get_config("qwen1.5-0.5b")).replace(codec="spike")
+    assert cfg.dtype == torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+    rng = np.random.RandomState(3)
+    reqs = [(rng.randint(0, cfg.vocab, L).tolist(), 6)
+            for L in rng.randint(1, 60, 5)]
+    outs = []
+    for shadow in (False, True):
+        ops.reset_launch_counts()
+        eng = ServingEngine(cfg, params, EngineConfig(num_slots=2,
+                                                      max_seq=64,
+                                                      page_size=8))
+        eng.ctx = eng.ctx.with_(count_matmul_shadow=shadow)
+        outs.append(eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                             for i, (p, m) in enumerate(reqs)]))
+        n = ops.launch_counts()
+        L, steps, pre = cfg.n_layers, eng.decode_steps, eng.prefills
+        assert n["lif_encode"] == 4 * L * (steps + pre) > 0
+        assert n["count_matmul"] == (5 * L * (steps + pre) if shadow else 0)
+        assert eng.cache.allocator.pages_in_use == 0
+    assert outs[0] == outs[1]

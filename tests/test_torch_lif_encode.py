@@ -69,20 +69,35 @@ def test_plain_matches_jax_oracle_wrapper_and_codec_body(name):
         assert (np.asarray(closed) != got.numpy()).any()
 
 
+def _one_population(name, dt):
+    """The CUDA kernel's algorithm in compute type ``dt`` against the
+    plain version's on-minus-off difference in the same type."""
+    from repro_torch.kernels.lif_encode import if_count
+    x, theta, scale, T = lif_tensors(name, "cpu")
+    s = scale.to(dt)
+    xn = x.to(dt) / s
+    count = if_count(torch.clamp(torch.abs(xn), 0.0, 1.0), T)
+    gate = torch.abs(xn) - theta.to(dt) / s >= 0.0
+    one = torch.where(gate, torch.where(xn < 0, -count, count),
+                      torch.zeros_like(count)).to(torch.int8)
+    np.testing.assert_array_equal(one.numpy(), ops.lif_encode(
+        x, theta, scale, T=T, math_dtype=dt).numpy())
+
+
 @pytest.mark.parametrize("name", LIF_CASES)
 def test_one_population_gives_the_count_difference(name):
     """The CUDA kernel integrates one population, ``clip(|x/s|, 0, 1)``,
     where the gate is open, and signs the count; on every case that is
     the plain version's on-minus-off difference, bit for bit."""
-    from repro_torch.kernels.lif_encode import if_count
-    x, theta, scale, T = lif_tensors(name, "cpu")
-    xn = x.float() / scale
-    count = if_count(torch.clamp(torch.abs(xn), 0.0, 1.0), T)
-    gate = torch.abs(xn) - theta / scale >= 0.0
-    one = torch.where(gate, torch.where(xn < 0, -count, count),
-                      torch.zeros_like(count)).to(torch.int8)
-    np.testing.assert_array_equal(
-        one.numpy(), ops.lif_encode(x, theta, scale, T=T).numpy())
+    _one_population(name, torch.float32)
+
+
+@pytest.mark.parametrize("name", LIF_CASES)
+def test_one_population_gives_the_count_difference_in_bf16(name):
+    """The same identity with every op rounded to bf16 (the kernel's bf16
+    mode): the idle population's membrane stays at bf16(0.5), and
+    ``-xn == |xn|`` exactly, so one population still gives the count."""
+    _one_population(name, torch.bfloat16)
 
 
 def test_gate_tie_oracle_and_codec_part():
@@ -162,9 +177,28 @@ def test_faithful_autograd_path_matches_jax():
 
 
 def test_faithful_codec_refuses_bf16_and_other_devices():
+    """bf16 activations are served now (the kernel's bf16 mode): the
+    codec's counts equal the JAX codec's on 256 x 1024 values at T = 15
+    and 7, where computing in float32 would differ.  Other devices and
+    gradients off the CPU are still refused."""
+    rng = np.random.RandomState(21)
+    x = (rng.standard_normal((256, 1024)) * 1.5).astype(np.float32)
+    pn = _codec_params(1024, 22)
+    for T in (15, 7):
+        jc = np.asarray(JS.encode(
+            jnp.array(x, jnp.bfloat16), {k: jnp.array(v) for k, v in
+                                         pn.items()},
+            JS.SpikeConfig(T=T, faithful=True)).astype(jnp.float32))
+        tx = torch.tensor(x).to(torch.bfloat16)
+        tp = {k: torch.tensor(v) for k, v in pn.items()}
+        tc = TS.encode(tx, tp, TS.SpikeConfig(T=T, faithful=True))
+        assert tc.dtype == torch.bfloat16
+        np.testing.assert_array_equal(tc.float().numpy(), jc)
+        f32 = TS.encode(tx.float(), tp, TS.SpikeConfig(T=T, faithful=True))
+        assert (f32.numpy() != jc).sum() > 100
     p = {"theta": torch.zeros(4), "log_scale": torch.zeros(4)}
     with pytest.raises(NotImplementedError):
-        TS.encode(torch.zeros(2, 4, dtype=torch.bfloat16), p,
+        TS.encode(torch.zeros(2, 4, dtype=torch.float16), p,
                   TS.SpikeConfig(faithful=True))
     meta = torch.zeros(2, 4, device="meta")
     with pytest.raises(ValueError):

@@ -17,8 +17,22 @@ and ``M.forward_decode`` under ``jax.shard_map`` on a 1x1 mesh, wrapped
 as the serving engine wraps them but returning logits, built once per
 codec on first use.  Every input is
 made with numpy from a fixed seed and handed to each side as a fresh
-copy.  This module also holds the helpers ``test_torch_engine.py``
-shares: the JAX reference model and its solo greedy loop.
+copy — a JAX call is dispatched asynchronously and on the CPU may alias
+a numpy buffer, so each gets its own (``own_copy``).  This module also
+holds the helpers ``test_torch_engine.py`` shares: the JAX reference
+model and its solo greedy loop.
+
+The same reduced model in bfloat16 (the config's published dtype) runs
+under ``spike`` through prefill and teacher-forced decode, with every
+spike encode of both sides recorded: the counts must be equal up to the
+first rounding split — a count whose two input values differ by at most
+one bf16 ulp — and the logits within one bf16 ulp of each row's largest
+JAX logit until then.  bf16 rounds at other places in XLA and torch
+(XLA keeps some products in float32), so the boundaries' inputs differ
+by bf16 rounding and exact equality can only be asked of the coded
+values; on these inputs the counts never split and the logits differ by
+at most 1.6e-3 at a largest logit of 0.58 (0.4 ulp).  bf16 argmax
+streams are not compared: ties flip them.
 
 Tolerance: logits agree within ``LOGIT_TOL`` = 1e-5 absolute, prompt
 KV within 1e-5.  Both sides compute in float32, but XLA and torch sum
@@ -29,6 +43,9 @@ side of a rounding boundary (a 1/15 step in one channel), which the
 seeded inputs here do not produce.  Greedy tokens must be identical
 wherever the JAX top-1/top-2 margin exceeds ``MARGIN`` = 1e-4.
 """
+import functools
+import itertools
+
 import numpy as np
 import pytest
 
@@ -41,6 +58,7 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import ShapeCell  # noqa: E402
 from repro.configs.reduced import reduced as jax_reduced  # noqa: E402
+from repro.core import spike as JS  # noqa: E402
 from repro.launch import specs as SP  # noqa: E402
 from repro.launch import train as TR  # noqa: E402
 from repro.launch.mesh import make_mesh  # noqa: E402
@@ -50,6 +68,7 @@ from repro.serving import kv_cache as JKV  # noqa: E402
 from repro_torch.checkpoint.convert import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.reduced import reduced  # noqa: E402
+from repro_torch.core import spike as TS  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.context import make_context  # noqa: E402
 from repro_torch.serving.kv_cache import PagedKVCache, SlotAllocator  # noqa: E402
@@ -70,11 +89,11 @@ class JaxModel:
     and the model-level prefill / insert / decode steps (jit-compiled
     lazily, once per process)."""
 
-    def __init__(self, hnn, codec):
+    def __init__(self, hnn, codec, dtype="float32"):
         self.jcfg = jax_reduced(jax_get_config(ARCH, hnn_mode=hnn)).replace(
-            codec=codec, dtype=jnp.float32)
+            codec=codec, dtype=getattr(jnp, dtype))
         self.tcfg = reduced(get_config(ARCH, hnn_mode=hnn)).replace(
-            codec=codec, dtype=torch.float32)
+            codec=codec, dtype=getattr(torch, dtype))
         mesh = make_mesh((1, 1), ("data", "model"))
         plan = SP.make_plan(self.jcfg, ShapeCell("serve_decode", MAX_SEQ,
                                                  SLOTS, "decode"), mesh)
@@ -140,7 +159,7 @@ class JaxModel:
         slot = alloc.alloc(len(prompt))
         cache = self.insert(self.init_cache(), pre,
                             jnp.asarray(slot, jnp.int32),
-                            jnp.asarray(alloc.block_table[slot]))
+                            own_copy(alloc.block_table[slot]))
         out, margins = [int(np.argmax(logits))], [margin(logits)]
         while not (len(out) >= max_new_tokens
                    or (eos_id is not None and out[-1] == eos_id)
@@ -155,6 +174,16 @@ class JaxModel:
             out.append(int(np.argmax(logits[slot])))
             margins.append(margin(logits[slot]))
         return out, margins
+
+
+def own_copy(host):
+    """A device array of its own for a host array the caller goes on
+    changing.  A JAX call is dispatched asynchronously, and on the CPU
+    ``jnp.asarray`` of a numpy view may alias the host buffer: an insert
+    handed a block-table row that ``alloc.ensure`` extends before the
+    insert has run scatters the prompt's padding into the newly mapped
+    page."""
+    return jnp.array(np.array(host))
 
 
 def margin(logits):
@@ -263,7 +292,7 @@ def test_teacher_forced_paged_decode(codec):
         for k in jcache:
             jcache[k] = jm.insert(jcache[k], jpre,
                                   jnp.asarray(slot, jnp.int32),
-                                  jnp.asarray(alloc.block_table[slot]))
+                                  own_copy(alloc.block_table[slot]))
             tcache[k].insert(tpre, alloc.block_table[slot])
     for _ in range(5):
         for s in range(SLOTS):
@@ -291,3 +320,182 @@ def test_teacher_forced_paged_decode(codec):
                 tcache[kernel].buffers["pos0"]["kv"][n].numpy(),
                 np.asarray(jcache[kernel]["pos0"]["kv"][n]),
                 atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 under the ``spike`` codec
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(a):
+    """The spacing of bf16 values at magnitude ``|a|`` (float32 array)."""
+    a = np.maximum(np.abs(np.asarray(a, np.float32)), np.float32(2.0**-126))
+    return np.exp2(np.floor(np.log2(a)) - 7).astype(np.float32)
+
+
+class Bf16Spike:
+    """The reduced model in bfloat16, codec ``spike``, on both sides, with
+    every spike encode of a step recorded: the value its counts were
+    rounded from and the counts.  On the JAX side a host callback at each
+    encode site reports them (``JS.encode`` is patched while the steps
+    are traced, which happens on their first call, inside ``traced``);
+    the sites are numbered as they are traced and each fires once per
+    scanned unit.  ``step(fn)`` returns both sides' events in the port's
+    order: unit by unit, boundary by boundary."""
+
+    def __init__(self):
+        self.jm = JaxModel("hnn", "spike", "bfloat16")
+        self.ctx = make_context(self.jm.tcfg)
+        self._jax = {}
+        self._port = []
+        self._sites = itertools.count()
+
+    def _record_jax(self, site, x, counts):
+        self._jax.setdefault(site, []).append(
+            (np.asarray(x, np.float32), np.asarray(counts, np.float32)))
+
+    def _jax_encode(self, orig, x, params, cfg):
+        counts = orig(x, params, cfg)
+        jax.debug.callback(functools.partial(self._record_jax,
+                                             next(self._sites)),
+                           x.astype(jnp.float32), counts.astype(jnp.float32))
+        return counts
+
+    def _port_encode(self, orig, x, params, cfg):
+        counts = orig(x, params, cfg)
+        self._port.append((x.float().numpy().copy(),
+                           counts.float().numpy().copy()))
+        return counts
+
+    def traced(self, jax_fn, port_fn):
+        """Run ``jax_fn()`` and ``port_fn()`` with every encode recorded;
+        returns (jax result, port result, jax events, port events)."""
+        self._jax, self._port = {}, []
+        j_orig, t_orig = JS.encode, TS.encode
+        JS.encode = functools.partial(self._jax_encode, j_orig)
+        TS.encode = functools.partial(self._port_encode, t_orig)
+        try:
+            jout = jax_fn()
+            jax.effects_barrier()
+            tout = port_fn()
+        finally:
+            JS.encode, TS.encode = j_orig, t_orig
+        sites = sorted(self._jax)
+        units = len(self._jax[sites[0]])
+        jev = [self._jax[s][u] for u in range(units) for s in sites]
+        return jout, tout, jev, self._port
+
+
+_BF16 = []
+
+
+def bf16_spike() -> Bf16Spike:
+    if not _BF16:
+        _BF16.append(Bf16Spike())
+    return _BF16[0]
+
+
+def first_rounding_split(jev, tev):
+    """Index of the first encode whose counts differ on the two sides, or
+    None.  Raises unless it is a rounding split: at every count that
+    differs, the two values rounded from differ, by at most one bf16
+    ulp, so each lies within one ulp of the count boundary between them
+    (equal values must give equal counts: both codecs are exact)."""
+    assert len(jev) == len(tev) > 0
+    for i, ((jx, jc), (tx, tc)) in enumerate(zip(jev, tev)):
+        assert jc.shape == tc.shape
+        diff = jc != tc
+        if diff.any():
+            gap = np.abs(jx - tx)[diff]
+            ulp = bf16_ulp(np.maximum(np.abs(jx), np.abs(tx))[diff])
+            assert ((gap > 0) & (gap <= ulp)).all(), (i, gap, ulp)
+            return i
+    return None
+
+
+def assert_bf16_logits_close(tl, jl):
+    """Each row within one bf16 ulp of its largest JAX logit (the head
+    matmul rounds to bf16)."""
+    jl = np.asarray(jl, np.float32).reshape(-1, jl.shape[-1])
+    tl = np.asarray(tl, np.float32).reshape(jl.shape)
+    tol = bf16_ulp(np.abs(jl).max(axis=-1, keepdims=True))
+    assert (np.abs(tl - jl) <= tol).all(), float(np.abs(tl - jl).max())
+
+
+def test_bf16_spike_prefill_coded_values_and_logits():
+    """Prefill of right-padded prompts in bf16 under ``spike``: every
+    boundary's spike counts equal JAX's up to the first rounding split,
+    and the logits within one bf16 ulp of the row's largest until then.
+    (The boundaries' inputs differ by bf16 rounding elsewhere in the
+    block — XLA keeps some products in float32 — so exact counts can only
+    be asked up to a split; on these inputs none occurs.)"""
+    bs = bf16_spike()
+    rng = np.random.RandomState(11)
+    for P_len in (1, 13, PREFILL):
+        prompt = rng.randint(0, bs.jm.tcfg.vocab, P_len).astype(np.int32)
+        toks = np.zeros((1, PREFILL), np.int32)
+        toks[0, :P_len] = prompt
+        (jl, _), (tl, _), jev, tev = bs.traced(
+            lambda: bs.jm.jax_prefill(prompt),
+            lambda: TM.forward_prefill(bs.jm.tparams, torch.tensor(toks),
+                                       bs.ctx,
+                                       last_pos=torch.tensor([P_len - 1])))
+        assert len(jev) == 4 * bs.jm.tcfg.n_layers
+        assert any(c.any() for _, c in tev)      # the wires carry spikes
+        assert tl.dtype == torch.float32 and torch.isfinite(tl).all()
+        if first_rounding_split(jev, tev) is None:
+            assert_bf16_logits_close(tl[0].numpy(), jl)
+
+
+def test_bf16_spike_teacher_forced_paged_decode():
+    """Three slots of mixed lengths, five teacher-forced decode steps
+    through both attention walks, bf16 pool: coded values and logits as
+    in the prefill test, step by step until the first rounding split."""
+    bs = bf16_spike()
+    jm = bs.jm
+    rng = np.random.RandomState(12)
+    alloc = SlotAllocator(SLOTS, MAX_SEQ, PSZ, num_pages=NUM_PAGES)
+    jcache = {k: jm.init_cache() for k in ("fused", "reference")}
+    tcache = {k: PagedKVCache(jm.tcfg, num_slots=SLOTS, max_seq=MAX_SEQ,
+                              page_size=PSZ, num_pages=NUM_PAGES,
+                              device="cpu")
+              for k in ("fused", "reference")}
+    pos = np.zeros(SLOTS, np.int32)
+    for P_len in (5, 19, PREFILL):
+        prompt = rng.randint(0, jm.tcfg.vocab, P_len).astype(np.int32)
+        _, jpre = jm.jax_prefill(prompt)
+        toks = np.zeros((1, PREFILL), np.int32)
+        toks[0, :P_len] = prompt
+        _, tpre = TM.forward_prefill(jm.tparams, torch.tensor(toks), bs.ctx,
+                                     last_pos=torch.tensor([P_len - 1]))
+        slot = alloc.alloc(P_len)
+        pos[slot] = P_len
+        for k in jcache:
+            jcache[k] = jm.insert(jcache[k], jpre,
+                                  jnp.asarray(slot, jnp.int32),
+                                  own_copy(alloc.block_table[slot]))
+            tcache[k].insert(tpre, alloc.block_table[slot])
+    split = {k: False for k in jcache}
+    for _ in range(5):
+        for s in range(SLOTS):
+            alloc.ensure(s, int(pos[s]) + 1)
+        token = rng.randint(0, jm.tcfg.vocab, SLOTS).astype(np.int32)
+        for kernel in ("fused", "reference"):
+            aux = {"block_table": torch.tensor(alloc.block_table)}
+            if kernel == "fused":
+                aux["page_list"] = (torch.tensor(alloc.page_list_loc),
+                                    torch.tensor(alloc.page_list_pos))
+            (jl, jcache[kernel]), (tl, _), jev, tev = bs.traced(
+                lambda: jm.jax_decode(kernel, jcache[kernel], token, pos,
+                                      alloc),
+                lambda: TM.forward_decode(
+                    jm.tparams, tcache[kernel].buffers, torch.tensor(token),
+                    torch.tensor(pos), bs.ctx, aux_extra=aux))
+            assert len(jev) == 4 * jm.tcfg.n_layers
+            assert torch.isfinite(tl).all()
+            if split[kernel]:
+                continue
+            split[kernel] = first_rounding_split(jev, tev) is not None
+            if not split[kernel]:
+                assert_bf16_logits_close(tl.numpy(), jl)
+        pos += 1

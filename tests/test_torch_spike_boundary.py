@@ -230,6 +230,86 @@ def test_sparse_topk_gather_refuses_gradients():
     assert y.shape == x.shape and torch.isfinite(y).all()
 
 
+_JBF16 = {
+    "coded_psum": _shard_mapped(lambda x, th, ls: JB.coded_psum(
+        x, {"theta": th, "log_scale": ls}, _codec(JB, "spike"), "model")),
+    "coded_all_gather": _shard_mapped(lambda x, th, ls: JB.coded_all_gather(
+        x, {"theta": th, "log_scale": ls}, _codec(JB, "spike"), "model",
+        axis=1))}
+
+
+@pytest.mark.parametrize("name", ["wire_roundtrip", "coded_psum",
+                                  "coded_all_gather"])
+def test_bf16_spike_boundaries_match_jax(name):
+    """The ``spike`` codec on bf16 activations, where both sides round
+    every op of the encoder to bf16: the wire's counts exactly equal and
+    the decoded values equal (1x1 mesh for the collectives)."""
+    rng = np.random.RandomState(9)
+    x = (rng.standard_normal((4, 16, 256)) * 1.5).astype(np.float32)
+    p = _params(rng, 256)
+    jx, tx = jnp.array(x, jnp.bfloat16), torch.tensor(x).to(torch.bfloat16)
+    jcodec, tcodec = _codec(JB, "spike"), _codec(TB, "spike")
+    # the decode scale, exp(log_scale) in bf16, is the same on both sides
+    # here (XLA's and torch's f32 exp may differ in the last place)
+    np.testing.assert_array_equal(
+        torch.exp(torch.tensor(p["log_scale"])).to(torch.bfloat16)
+        .float().numpy(),
+        np.asarray(jnp.exp(jnp.array(p["log_scale"])).astype(jnp.bfloat16)
+                   .astype(jnp.float32)))
+    jw = JB._encode_local(jx, _jp(p), jcodec)[0]
+    tw = TB._encode_local(tx, _tp(p), tcodec)[0]
+    assert tw.dtype == torch.int8
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    if name == "wire_roundtrip":
+        jout = JB.wire_roundtrip(jx, _jp(p), jcodec)
+        tout = TB.wire_roundtrip(tx, _tp(p), tcodec)
+    else:
+        kw = {"axis": 1} if name == "coded_all_gather" else {}
+        jout = _JBF16[name](jx, jnp.array(p["theta"]),
+                            jnp.array(p["log_scale"]))
+        tout = getattr(TB, name)(tx, _tp(p), tcodec, **kw)
+    assert tout.dtype == torch.bfloat16 and tout.shape == x.shape
+    np.testing.assert_array_equal(tout.float().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("name", ["wire_roundtrip", "coded_all_gather"])
+def test_count_matmul_shadow(name, monkeypatch):
+    """With consuming weights, a spike-count boundary also runs the count
+    matmul on its wire's int8 counts, once per weight, and serves the
+    same value; each product is the decoded value times the weight
+    (float32, within 2e-5: the fused decode multiplies by f32(1/T) where
+    the decode divides by T).  A wire without counts refuses weights."""
+    rng = np.random.RandomState(12)
+    x = torch.tensor(rng.standard_normal((3, 4, 32)).astype(np.float32))
+    p = _tp(_params(rng, 32))
+    ws = [torch.tensor(rng.standard_normal((32, n)).astype(np.float32))
+          for n in (16, 40)]
+    codec = _codec(TB, "spike")
+    seen = []
+    real = TB.kops.count_matmul
+
+    def recorded(c, w, s, **kw):
+        seen.append((c, w, real(c, w, s, **kw)))
+        return seen[-1][2]
+
+    monkeypatch.setattr(TB.kops, "count_matmul", recorded)
+    kw = {"axis": 1} if name == "coded_all_gather" else {}
+    fn = getattr(TB, name)
+    served = fn(x, p, codec, **kw)
+    assert not seen
+    shadowed = fn(x, p, codec, consumers=tuple(ws), **kw)
+    assert torch.equal(shadowed, served)
+    assert [w for _, w, _ in seen] == ws
+    counts = TB.spike.encode(x, p, codec.cfg).reshape(-1, 32)
+    for c, w, y in seen:
+        assert c.dtype == torch.int8 and torch.equal(c.float(), counts)
+        torch.testing.assert_close(y, served.reshape(-1, 32) @ w,
+                                   rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError):
+        fn(x, p, _codec(TB, "int8"), consumers=tuple(ws), **kw)
+
+
 def test_unported_modes_raise():
     x = torch.zeros(2, 4)
     p = {"theta": torch.zeros(4), "log_scale": torch.zeros(4)}
@@ -237,8 +317,18 @@ def test_unported_modes_raise():
         TB.coded_psum(x, p, TB.BoundaryCodec(mode="spike_pack2"))
     with pytest.raises(NotImplementedError):
         TB.coded_psum(x, p, _codec(TB, "int8"), world_size=2)
-    with pytest.raises(NotImplementedError):
-        TB.coded_psum(x.to(torch.bfloat16), p, _codec(TB, "spike"))
+    # bf16 ``spike`` is served now, as the reference serves it
+    rng = np.random.RandomState(10)
+    xb = (rng.standard_normal((2, 1, 64)) * 1.5).astype(np.float32)
+    pb = _params(rng, 64)
+    jout = _JBF16["coded_psum"](jnp.array(xb, jnp.bfloat16),
+                                jnp.array(pb["theta"]),
+                                jnp.array(pb["log_scale"]))
+    tout = TB.coded_psum(torch.tensor(xb).to(torch.bfloat16), _tp(pb),
+                         _codec(TB, "spike"))
+    assert tout.dtype == torch.bfloat16
+    np.testing.assert_array_equal(tout.float().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
 
 
 def test_wire_bits_match_jax():
