@@ -18,9 +18,13 @@ on failure:
    conformance cases (every byte value among them) and at the serve
    shapes [4, 1024], [120, 1024] and [256, 1024], exactly;
    ``count_matmul`` on its conformance sweep (M in {1, 4, 33, 256}, K in
-   {128, 300, 1024}, N in {200, 1024, 2816}, T in {7, 15}, float32 and
-   bf16 weights and results; float32 within rtol = atol = 2e-5, bf16 the
-   rounding of a float32 sum within that of the plain version's);
+   {128, 300, 1024}, N in {200, 1024, 2816}, and the edges of each of its
+   designs: every M in 1..17 at ragged K and N, prefill rows at ragged K
+   and N; T in {7, 15}, float32 and bf16 weights and results; float32
+   within rtol = atol = 2e-5, bf16 the rounding of a float32 sum within
+   that of the plain version's); then paged decode and ``count_matmul``
+   twice on the same inputs at their serve shapes, which must give the
+   same bits;
 4. serve the full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16
    heads of 64, d_ff 2816, vocab 151936; HNN mode; float32 weights from
    the port's seeded init) through ``ServingEngine``: eight requests of
@@ -54,9 +58,11 @@ on failure:
 5. time each kernel, its plain version and its bound at the shapes the
    serve path gives it (paged decode also against PyTorch's
    ``scaled_dot_product_attention`` on the gathered K/V of the same live
-   tokens, ``count_matmul`` against ``torch.matmul`` of the decoded
-   float32 activations and float32 weights, as yardsticks only), and
-   print one ``kernels`` JSON line;
+   tokens, ``count_matmul`` — at [4, 1024] and [256, 1024] times both
+   weight shapes it meets, [1024, 2816] (w1, w3) and [1024, 1024] (wq,
+   wk, wv) — against ``torch.matmul`` of the decoded float32
+   activations and float32 weights, as yardsticks only), and print one
+   ``kernels`` JSON line;
 6. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
@@ -83,6 +89,9 @@ SRC = ROOT / "src"
 # against the same scalar rate (they stay far below the byte time)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# dense bf16 tensor-core rate: the rate of count_matmul's design for more
+# than 16 rows and bf16 weights (three bf16 products per f32 product)
+BF16_TC_FLOP_PER_S = 989e12
 MARGIN = 1e-4
 N_LAYERS = 24
 #: the main path's codecs, in the order they are served
@@ -364,17 +373,19 @@ def check_boundary_kernels():
 
 def check_count_matmul():
     """The count matmul's conformance sweep on the card: every shape of
-    ``COUNT_MATMUL_SHAPES`` at T = 7 and 15, float32 and bf16 weights,
-    float32 and bf16 results, each launch against the plain version's
-    float32 sum by ``count_matmul_agrees``.  Returns (largest abs
+    ``COUNT_MATMUL_SHAPES`` and ``COUNT_MATMUL_RAGGED_SHAPES`` at T = 7
+    and 15, float32 and bf16 weights, float32 and bf16 results, each
+    launch against the plain version's float32 sum by
+    ``count_matmul_agrees``.  Returns (largest abs
     difference of a float32 result, largest bf16 steps of a bf16 result
     from the rounding of the plain sum, launches)."""
     from repro_torch.kernels import count_matmul as CM
-    from repro_torch.kernels.cases import (COUNT_MATMUL_SHAPES,
+    from repro_torch.kernels.cases import (COUNT_MATMUL_RAGGED_SHAPES,
+                                           COUNT_MATMUL_SHAPES,
                                            count_matmul_agrees,
                                            count_matmul_case)
     err, steps, n = 0.0, 0, 0
-    for M, K, N in COUNT_MATMUL_SHAPES:
+    for M, K, N in COUNT_MATMUL_SHAPES + COUNT_MATMUL_RAGGED_SHAPES:
         for T in (7, 15):
             c, w, sc = (torch.tensor(a, device="cuda") for a in
                         count_matmul_case(M, K, N, T, seed=M + K + N + T))
@@ -396,22 +407,27 @@ def check_count_matmul():
     return err, steps, n
 
 
-def count_matmul_bound(M, K, N, w_bytes, out_bytes):
+def count_matmul_bound(M, K, N, w_bytes, out_bytes, tensor_cores=False):
     """(bound ms, bound_by) of one count matmul: int8 counts, W, the f32
     scale and the result each moved once over the HBM rate, or its
-    2 M K N operations over the f32 rate, whichever is larger."""
+    2 M K N operations over the f32 rate, whichever is larger.  With
+    ``tensor_cores``, the bound of the kernel's design for more than 16
+    rows and bf16 W instead: its 3 x 2 M K N bf16 operations (three bf16
+    planes of each activation) over the dense bf16 tensor-core rate."""
     nbytes = M * K + K * N * w_bytes + 4 * K + M * N * out_bytes
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * M * K * N / F32_FLOP_PER_S * 1e3
+    t_ops = (3 * 2 * M * K * N / BF16_TC_FLOP_PER_S * 1e3 if tensor_cores
+             else 2 * M * K * N / F32_FLOP_PER_S * 1e3)
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_count_matmul(args, kw, flush):
-    """(kernel ms, plain ms, library ms, bound ms, bound_by) of one count
-    matmul on the given (live) inputs; the library yardstick is
-    ``torch.matmul`` of the decoded float32 activations and float32 W,
-    TF32 off (the decode is done before the clock starts)."""
+    """(kernel ms, plain ms, library ms, bound ms, bound_by, tensor-core
+    bound ms or None) of one count matmul on the given (live) inputs; the
+    library yardstick is ``torch.matmul`` of the decoded float32
+    activations and float32 W, TF32 off (the decode is done before the
+    clock starts)."""
     from repro_torch.kernels import count_matmul as CM
     counts, w, scale = args
     ms = cuda_ms(lambda: CM.count_matmul_cuda(counts, w, scale, **kw), flush)
@@ -422,8 +438,46 @@ def time_count_matmul(args, kw, flush):
     lib_ms = cuda_ms(lambda: torch.matmul(a, w32), flush)
     (M, K), N = counts.shape, w.shape[1]
     out_bytes = torch.empty((), dtype=kw["out_dtype"]).element_size()
-    return (ms, plain_ms, lib_ms) + count_matmul_bound(
-        M, K, N, w.element_size(), out_bytes)
+    sizes = (M, K, N, w.element_size(), out_bytes)
+    tc = (count_matmul_bound(*sizes, tensor_cores=True)[0]
+          if M > 16 and w.dtype == torch.bfloat16 else None)
+    return (ms, plain_ms, lib_ms) + count_matmul_bound(*sizes) + (tc,)
+
+
+def check_repeatable(s_case):
+    """Paged decode (f32 and bf16 pools, wire off and on) and
+    ``count_matmul`` (bf16 W, f32 and bf16 results, the four timed
+    shapes), each launched twice on the same inputs at its serve shape:
+    the two results must be equal bit for bit.  Returns the launches
+    compared."""
+    from repro_torch.kernels import count_matmul as CM
+    from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels.cases import count_matmul_case, to_tensors
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        ts = to_tensors(s_case, "cuda", dt)
+        for wire in (False, True):
+            a = PD.paged_decode_cuda(*ts, encode_wire=wire)
+            b = PD.paged_decode_cuda(*ts, encode_wire=wire)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"paged_decode {dt} wire={wire}: two "
+                                     "launches differ")
+            n += 1
+    for M in (4, 256):
+        for N in (2816, 1024):
+            c, w, sc = (torch.tensor(a, device="cuda") for a in
+                        count_matmul_case(M, 1024, N, 15, seed=M + N))
+            w = w.to(torch.bfloat16)
+            for od in (torch.float32, torch.bfloat16):
+                a = CM.count_matmul_cuda(c, w, sc, T=15, out_dtype=od)
+                b = CM.count_matmul_cuda(c, w, sc, T=15, out_dtype=od)
+                torch.cuda.synchronize()
+                if not torch.equal(a, b):
+                    raise AssertionError(f"count_matmul [{M},1024]x[1024,"
+                                         f"{N}] {od}: two launches differ")
+                n += 1
+    return n
 
 
 class LaunchCheck:
@@ -812,6 +866,10 @@ def main() -> int:
           f"results at most {cm_steps} bf16 steps from the rounding of the "
           "plain float32 sum where the tolerance is finer than half a "
           "step)", flush=True)
+    n_rep = check_repeatable(s_case)
+    print(f"check repeatable: {n_rep} pairs of launches of paged_decode and "
+          "count_matmul at their serve shapes equal bit for bit",
+          flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
@@ -904,30 +962,38 @@ def main() -> int:
 
     # the count matmul on the bf16 spike run's live wire counts, at the
     # decode and the prefill shape of the MLP input ([M, 1024] x
-    # [1024, 2816], bf16 W and result)
+    # [1024, 2816], w1 and w3) and of the attention input ([M, 1024] x
+    # [1024, 1024], wq, wk and wv), bf16 W and result
     check, cm_launches = runs["spike/bf16"][1], runs["spike/bf16"][4]
     by_shape = []
-    for M in (4, 256):
-        key = ("count_matmul", (M, cfg.d_model, cfg.d_ff))
-        if key not in check.samples:
-            raise AssertionError(f"count_matmul: no live launch at {key[1]}; "
-                                 f"saw {sorted(k for k in check.samples)}")
-        args, kw = check.samples[key]
-        k_ms, p_ms, l_ms, b_ms, b_by = time_count_matmul(args, kw, flush)
-        by_shape.append({"shape": list(key[1]), "ms": k_ms, "plain_ms": p_ms,
-                         "library_ms": l_ms, "bound_ms": b_ms,
-                         "bound_by": b_by})
-        print(f"count_matmul at [{M},{cfg.d_model}]x[{cfg.d_model},"
-              f"{cfg.d_ff}] bf16: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, "
-              f"matmul {l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by})",
-              flush=True)
+    for N in (cfg.d_ff, cfg.d_model):
+        for M in (4, 256):
+            key = ("count_matmul", (M, cfg.d_model, N))
+            if key not in check.samples:
+                raise AssertionError(f"count_matmul: no live launch at "
+                                     f"{key[1]}; saw "
+                                     f"{sorted(k for k in check.samples)}")
+            args, kw = check.samples[key]
+            k_ms, p_ms, l_ms, b_ms, b_by, tc_ms = time_count_matmul(
+                args, kw, flush)
+            by_shape.append({"shape": list(key[1]), "ms": k_ms,
+                             "plain_ms": p_ms, "library_ms": l_ms,
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "tc_bound_ms": tc_ms})
+            tc = (f", tensor-core bound {tc_ms:.6f} ms" if tc_ms is not None
+                  else "")
+            print(f"count_matmul at [{M},{cfg.d_model}]x[{cfg.d_model},{N}] "
+                  f"bf16: kernel {k_ms:.5f} ms, plain {p_ms:.5f} ms, matmul "
+                  f"{l_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}){tc}",
+                  flush=True)
     kernels.append({
         "name": "count_matmul", "route": "cuda",
         "source": SOURCE["count_matmul"],
         "replaces": REPLACES["count_matmul"],
         "launches": cm_launches["count_matmul"],
         "max_abs_err": errs["count_matmul"],
-        **{k: v for k, v in by_shape[0].items() if k != "shape"},
+        **{k: v for k, v in by_shape[0].items()
+           if k not in ("shape", "tc_bound_ms")},
         "shape": by_shape[0]["shape"], "by_shape": by_shape})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

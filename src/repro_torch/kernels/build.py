@@ -3,16 +3,18 @@
 Each kernel is one ``.cu`` file under ``repro_torch/csrc/`` with a plain
 C interface, compiled by ``nvcc`` for ``sm_90a`` into a shared library
 and bound with ``ctypes``.  Libraries land in ``build/repro_torch/`` at
-the root of the checkout, named by a hash of their source so an edited
-kernel is never served from a stale build.  Nothing is built at import:
-the first launch (or ``build()``) compiles, and several kernels compile
-in parallel, one ``nvcc`` each.
+the root of the checkout, named by a hash of their source and of every
+header it includes from ``csrc/`` (``#include "..."``, followed through
+headers), so an edited kernel or header is never served from a stale
+build.  Nothing is built at import: the first launch (or ``build()``)
+compiles, and several kernels compile in parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def build_dir() -> Path:
@@ -42,9 +45,36 @@ def _nvcc() -> str:
                        "on a machine with the CUDA toolkit")
 
 
+def source_files(src: Path) -> list:
+    """``src`` and every file it includes with ``#include "..."`` that
+    exists beside the includer, followed through includes, each once, in
+    the order first reached."""
+    files = []
+
+    def walk(path: Path):
+        if path in files:
+            return
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = (path.parent / inc).resolve()
+            if dep.is_file():
+                walk(dep)
+
+    walk(Path(src).resolve())
+    return files
+
+
+def source_digest(src: Path) -> str:
+    """12 hex digits of a hash over ``source_files(src)``: names and
+    contents."""
+    h = hashlib.sha256()
+    for path in source_files(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = source_digest(CSRC / SOURCES[name])
     return build_dir() / f"lib{name}-{digest}.so"
 
 

@@ -17,8 +17,9 @@ from a numpy ``RandomState`` or built exactly:
   ragged row counts;
 * ``count_matmul``: counts spanning -T..T with all-zero rows and
   columns, random weights and positive scales, over ragged and serve
-  shapes, with the agreement rule its checks share
-  (``count_matmul_agrees``).
+  shapes (``COUNT_MATMUL_SHAPES``) and the edges of each CUDA design
+  (``COUNT_MATMUL_RAGGED_SHAPES``), with the agreement rule its checks
+  share (``count_matmul_agrees``).
 """
 from __future__ import annotations
 
@@ -63,6 +64,13 @@ CASES = {
                          0, 0.0, ()),
     "evicted_row": (dict(seed=5, B=3, K1=2, Hq=4, Hkv=4, dh=16, P_loc=8,
                          psz=8, ppc=3), 0, 0.0, (1,)),
+    # the serve shape's list length (16 entries): every entry a live page,
+    # and six live pages before a tail of ten -1 entries, as a slot of
+    # ~88 tokens has them
+    "full_list": (dict(seed=6, B=3, K1=1, Hq=4, Hkv=2, dh=16, P_loc=20,
+                       psz=8, ppc=16, n_live=16), 0, 0.0, ()),
+    "minus_one_tail": (dict(seed=7, B=4, K1=1, Hq=4, Hkv=4, dh=16,
+                            P_loc=32, psz=8, ppc=16, n_live=6), 0, 0.0, ()),
 }
 
 
@@ -175,6 +183,15 @@ def pack4_case(name):
 COUNT_MATMUL_SHAPES = tuple((M, K, N) for M in (1, 4, 33, 256)
                             for K in (128, 300, 1024)
                             for N in (200, 1024, 2816))
+#: (M, K, N) that reach each design of the CUDA kernel at its edges:
+#: every decode row count 1..16 (the W-streaming design's three row
+#: buckets) and 17 (the first of the tiled designs), each at a ragged K
+#: and N whose rows 16-byte loads cannot take (300, 130) and at K and N
+#: they can, ragged at the tile edge (1024, 1000); then prefill rows at a
+#: ragged K and N (77: no vector load of the scales either)
+COUNT_MATMUL_RAGGED_SHAPES = tuple(
+    (M, K, N) for M in range(1, 18) for K, N in ((300, 130), (1024, 1000))
+) + ((256, 77, 200), (256, 1000, 130), (256, 1024, 1000))
 #: rtol = atol of a float32 result (``tests/test_kernels.py``)
 COUNT_MATMUL_TOL = 2e-5
 

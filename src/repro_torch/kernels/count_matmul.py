@@ -14,11 +14,16 @@ decode multiplies by ``f32(1/T)`` rather than dividing by T (the JAX
 oracle ``ref.count_matmul_ref`` divides; the two differ in the last
 place).
 
-The CUDA kernel (``csrc/count_matmul.cu``) tiles counts and W through
-shared memory and accumulates float32 FMAs on the CUDA cores; ragged
-shapes are bounds-checked inside it.  What bounds it on the card is W's
-bytes at a decode batch of a few rows and the 2 M K N float32
-operations at a prefill of hundreds.
+The CUDA kernel (``csrc/count_matmul.cu``) takes one of three designs
+by shape.  At a decode batch of up to 16 rows it streams W, bound by
+W's bytes: a cluster of blocks splits K, each thread keeps every row's
+sums for its columns, and the partials are summed in a fixed order
+through the cluster's shared memory.  At more rows with bf16 W it runs
+on the tensor cores: the decoded float32 activations split exactly
+into three bf16 planes, whose products with bf16 W are exact in
+float32.  With float32 W and more rows, float32 FMAs through
+shared-memory tiles.  Ragged shapes are bounds-checked inside it, and
+no design uses atomics: two launches give the same bits.
 
 ``ops.count_matmul`` is the wrapper callers use: CPU tensors take
 ``count_matmul_plain``, CUDA tensors ``count_matmul_cuda``.

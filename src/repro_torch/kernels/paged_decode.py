@@ -15,15 +15,19 @@ partial quantized to int8 per (token, head): ``s = max(absmax,
 1e-6)/127``, ``round(o/s)`` (half to even).
 
 The CUDA kernel (``csrc/paged_decode.cu``) runs one block per (slot,
-kv head) and stages one page at a time in shared memory.  What bounds
-it on the card is memory: the K/V bytes of the live pages, read once,
-plus q and the outputs, at the card's memory bandwidth — decode
-attention does about one operation per byte.  The design reads each
-live page's K/V once per kv head and shares it across the GQA group's
-query heads and all K1 query tokens; the running max, normaliser and
-accumulator stay in shared memory, so nothing but the (optionally int8)
-partial and lse is written.  Overlapping the page loads with compute
-(a ring with cp.async or TMA) is left to a later version.
+kv head).  What bounds it on the card is memory: the K/V bytes of the
+live pages, read once, plus q and the outputs, at the card's memory
+bandwidth — decode attention does about one operation per byte, and at
+the serve shape those bytes take under a microsecond, so the design
+cuts the dependent trips to memory.  The block reads the list once,
+keeps only the entries that hold a key some query may see (every entry
+when some query token sees none, as for an evicted slot, so the
+sentinel arithmetic is the oracle's), deals them to its warps, and
+each warp streams its pages through a two-stage ``cp.async`` ring with
+its own running max, normaliser and accumulator; the warps' partials
+are combined in a fixed order.  Each staged page is shared by the GQA
+group's query heads and all K1 query tokens, and nothing but the
+(optionally int8) partial and lse is written.
 
 ``ops.paged_flash_decode`` is the wrapper callers use: CPU tensors take
 ``paged_decode_plain``, CUDA tensors ``paged_decode_cuda``.
@@ -137,11 +141,8 @@ def paged_decode_cuda(q, k_pool, v_pool, cl_page, cl_pos, qpos, *,
     _require(cl_page.ndim == 2 and cl_page.shape == cl_pos.shape
              and cl_page.shape[0] == B, "cl_page/cl_pos must be [B, ppc]")
     _require(tuple(qpos.shape) == (B, K1), "qpos must be [B, K1]")
+    _require(dh % 4 == 0, f"dh={dh} must be a multiple of 4")
     ppc = cl_page.shape[1]
-    smem = 4 * (2 * psz * dh + 2 * K1 * (Hq // Hkv) * dh
-                + K1 * (Hq // Hkv) * psz + 3 * K1 * (Hq // Hkv)) + 4 * K1
-    _require(smem <= 227 * 1024,
-             f"{smem} bytes of shared memory exceed the block limit")
     lse = torch.empty((B, K1, Hq), dtype=F32, device=dev)
     if encode_wire:
         o = None

@@ -13,9 +13,15 @@ no JAX, so it collects where only PyTorch is installed.
   ``unpack4`` kernels against their plain versions on every conformance
   case, exactly (integer outputs).
 * The ``count_matmul`` kernel against its plain version's float32 sum on
-  its conformance sweep (``count_matmul_agrees``: float32 results within
+  its conformance sweep and on the edges of each of its designs
+  (``COUNT_MATMUL_RAGGED_SHAPES``: every row count 1..17, ragged K and
+  N, prefill rows) (``count_matmul_agrees``: float32 results within
   rtol = atol = 2e-5, bf16 results the rounding of a float32 sum within
   that), TF32 off.
+* Both redesigned kernels give the same bits on two launches with the
+  same inputs (no atomics; fixed reduction orders), at the serve shapes;
+  paged decode also against its plain version there, and with bf16 rows
+  that are no multiple of 16 bytes (4-byte copies).
 * The reduced model served on the card: kernel walk and reference walk
   give the same greedy streams under the margin rule, and the kernel
   ran once per layer per decode step.  In bfloat16 (the configs'
@@ -34,9 +40,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
-    CASES, COUNT_MATMUL_SHAPES, LIF_CASES, PACK4_CASES, case_arrays,
-    count_matmul_agrees, count_matmul_case, lif_tensors, pack4_case,
-    to_tensors)
+    CASES, COUNT_MATMUL_RAGGED_SHAPES, COUNT_MATMUL_SHAPES, LIF_CASES,
+    PACK4_CASES, case_arrays, count_matmul_agrees, count_matmul_case,
+    lif_tensors, pack4_case, rand_case, to_tensors)
 from repro_torch.kernels.count_matmul import count_matmul_plain  # noqa: E402
 from repro_torch.kernels.lif_encode import lif_encode_plain  # noqa: E402
 from repro_torch.kernels.pack4 import pack4_plain, unpack4_plain  # noqa: E402
@@ -111,6 +117,74 @@ def test_count_matmul_matches_plain_on_card(M, T):
                 assert got.dtype == od and got.shape == (M, N)
                 assert count_matmul_agrees(got, want)[0], (K, N, wt.dtype,
                                                            od)
+
+
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_count_matmul_design_edges_on_card(w_dtype):
+    _require_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for M, K, N in COUNT_MATMUL_RAGGED_SHAPES:
+        c, w, sc = (torch.tensor(a, device="cuda") for a in
+                    count_matmul_case(M, K, N, 15, seed=M * K + N))
+        wt = w.to(getattr(torch, w_dtype))
+        want = count_matmul_plain(c, wt, sc, T=15, out_dtype=torch.float32)
+        for od in (torch.float32, torch.bfloat16):
+            got = ops.count_matmul(c, wt, sc, T=15, out_dtype=od)
+            assert got.dtype == od and got.shape == (M, N)
+            assert count_matmul_agrees(got, want)[0], (M, K, N, w_dtype, od)
+
+
+@pytest.mark.parametrize("M,N", [(4, 2816), (4, 1024), (256, 2816),
+                                 (256, 1024)])
+def test_count_matmul_repeats_bit_for_bit_on_card(M, N):
+    _require_cuda()
+    c, w, sc = (torch.tensor(a, device="cuda") for a in
+                count_matmul_case(M, 1024, N, 15, seed=M + N))
+    wt = w.to(torch.bfloat16)
+    for od in (torch.float32, torch.bfloat16):
+        a = ops.count_matmul(c, wt, sc, T=15, out_dtype=od)
+        b = ops.count_matmul(c, wt, sc, T=15, out_dtype=od)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_live", [6, 16])
+def test_paged_decode_serve_shape_on_card(n_live, pool_dtype):
+    """The serve shape (16 heads of 64, pages of 16, 16 list entries a
+    slot): six live pages before a -1 tail, or every entry live; against
+    the plain version, and bit for bit on a second launch."""
+    _require_cuda()
+    arrays = rand_case(seed=n_live, B=4, K1=1, Hq=16, Hkv=16, dh=64,
+                       P_loc=64, psz=16, ppc=16, n_live=n_live)
+    ts = to_tensors(arrays, "cuda", getattr(torch, pool_dtype))
+    o, lse = ops.paged_flash_decode(*ts)
+    po, plse = paged_decode_plain(*ts)
+    torch.testing.assert_close(o, po, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+    o2, lse2 = ops.paged_flash_decode(*ts)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    w, s, lse_w = ops.paged_flash_decode(*ts, encode_wire=True)
+    w2, s2, lse_w2 = ops.paged_flash_decode(*ts, encode_wire=True)
+    assert torch.equal(w, w2) and torch.equal(s, s2)
+    assert torch.equal(lse_w, lse) and torch.equal(lse_w2, lse)
+
+
+def test_paged_decode_unaligned_rows_on_card():
+    """bf16 rows of 12 values (24 bytes) take 4-byte copies, not 16."""
+    _require_cuda()
+    arrays = rand_case(seed=9, B=3, K1=2, Hq=4, Hkv=2, dh=12, P_loc=16,
+                       psz=8, ppc=6)
+    ts = to_tensors(arrays, "cuda", torch.bfloat16)
+    for wire in (False, True):
+        got = ops.paged_flash_decode(*ts, encode_wire=wire)
+        want = paged_decode_plain(*ts, encode_wire=wire)
+        if wire:
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0.0)
+            assert int((got[0].int() - want[0].int()).abs().max()) <= 1
+        else:
+            torch.testing.assert_close(got[0], want[0], rtol=2e-5,
+                                       atol=2e-5)
+        torch.testing.assert_close(got[-1], want[-1], rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("name", PACK4_CASES)
