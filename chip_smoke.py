@@ -14,9 +14,12 @@ on failure:
    the serve shape (Hq = Hkv = 16, dh = 64, page 16, K1 = 1), f32 and
    bf16 pools, with and without the int8 wire epilogue (within 2e-5, the
    wire within one int8 step); ``lif_encode`` (in both of its compute
-   types, float32 and bfloat16), ``pack4`` and ``unpack4`` on their
-   conformance cases (every byte value among them) and at the serve
-   shapes [4, 1024], [120, 1024] and [256, 1024], exactly;
+   types, float32 and bfloat16, with and without its decode epilogue),
+   ``pack4``, ``pack4_counts`` (the wire's bias fused into the pack, f32
+   and bf16 counts) and ``unpack4`` on their conformance cases (every
+   byte value among them), on the edges of their vector layouts
+   (``LIF_TAIL_CASES``, ``PACK4_TAIL_CASES``) and at the serve shapes
+   [4, 1024], [120, 1024] and [256, 1024], every output exactly;
    ``count_matmul`` on its conformance sweep (M in {1, 4, 33, 256}, K in
    {128, 300, 1024}, N in {200, 1024, 2816}, and the edges of each of its
    designs: every M in 1..17 at ragged K and N, prefill rows at ragged K
@@ -31,14 +34,18 @@ on failure:
    16-120 prompt tokens and 32 new tokens each on four slots, once per
    coded-boundary codec — ``spike_fused`` (the main path of the first
    slice), then ``spike`` (the T-tick IF encoder, ``lif_encode`` at
-   every coded boundary), ``spike_pack4`` (``pack4`` before and
-   ``unpack4`` after every coded exchange) and ``sparse_topk``.  For
+   every coded boundary, the wire roundtrips' decode in its epilogue),
+   ``spike_pack4`` (``pack4_counts`` before and ``unpack4`` after every
+   coded exchange) and ``sparse_topk``.  For
    each codec the kernel walk's run is timed with every launch count set
    to 0 just before it and read just after: paged decode must launch 24
    times per decode step, ``lif_encode`` 4 x 24 times per decode step
    and per prefill under ``spike``, ``pack4`` and ``unpack4`` 24 x (2
    per decode step + 4 per prefill) under ``spike_pack4``, and every
-   page must be free at the end.  The reference walk (same boundary
+   page must be free at the end.  In the checked run every wire
+   roundtrip under ``spike`` must be a ``lif_encode`` launch with the
+   epilogue, and every pack under ``spike_pack4`` a ``pack4_counts``
+   launch.  The reference walk (same boundary
    kernel counts, no paged decode) and a second kernel-walk run (every
    launch of every kernel checked against its plain version on its live
    inputs) are traced at every coded wire: their greedy streams must
@@ -55,18 +62,29 @@ on failure:
    input, w1, w3 after the MLP input: 24 x 5 launches per decode step
    and per prefill), each launch held to its plain version, and the
    served streams must not change;
-5. time each kernel, its plain version and its bound at the shapes the
-   serve path gives it (paged decode also against PyTorch's
+5. time the launch floor (a one-element ``zero_()``) and each kernel,
+   its plain version and its bound at the shapes the serve path gives
+   it (``lif_encode`` in both compute types at the decode and the
+   prefill rows, with and without the epilogue; ``pack4`` from both
+   entry points; paged decode also against PyTorch's
    ``scaled_dot_product_attention`` on the gathered K/V of the same live
    tokens, ``count_matmul`` — at [4, 1024] and [256, 1024] times both
    weight shapes it meets, [1024, 2816] (w1, w3) and [1024, 1024] (wq,
    wk, wv) — against ``torch.matmul`` of the decoded float32
-   activations and float32 weights, as yardsticks only), and print one
-   ``kernels`` JSON line;
+   activations and float32 weights, as yardsticks only); count the
+   CUDA kernels and memory operations of one decode step of four slots,
+   f32, under ``spike_fused``, ``spike`` and ``spike_pack4``, with
+   ``torch.profiler`` (after every timing); print one ``kernels`` JSON
+   line;
 6. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result.  It imports nothing of JAX.
+
+``python3 chip_smoke.py --kernels-per-step SRC`` builds the kernels of
+the package under ``SRC`` (the ``src`` directory of a checkout, another
+commit's too) and prints only its kernels per decode step, so that two
+commits are counted in one call.
 """
 from __future__ import annotations
 
@@ -253,26 +271,38 @@ def time_kernel(arrays, cfg):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def boundary_bound(name, args, kw):
+def boundary_bound(entry, args, kw):
     """(bound ms, bound_by) of one boundary-kernel call: each input byte
     read once and each output byte written once over the HBM rate, or
     the algorithm's operations over the f32 rate, whichever is larger."""
     x = args[0]
     n = x.numel()
-    if name == "lif_encode":
-        # x, theta and scale in, int8 counts out.  Ten ops per element
-        # for x/s, theta/s, the gate, the clip and the sign; then, only
-        # where this run's data opens the gate on a nonzero drive, one
-        # population's add, compare, reset and count per tick (the other
-        # population's drive is 0 and it never fires)
+    if entry == "lif_encode":
+        # x, theta and scale in, int8 counts out.  One op per channel
+        # for theta/s; eight per element for x/s, the absolute value,
+        # the gate's subtract and compare, the clip, the select, the sign
+        # and the int8 conversion; then, only where this run's data
+        # opens the gate on a nonzero drive, one population's add,
+        # compare and reset per tick (the other population's drive is 0
+        # and it never fires) and two ops to read the count off the final
+        # membrane.  The decode epilogue reads decode_scale and writes
+        # one value of x's dtype per element, one multiply each
         md = kw.get("math_dtype", torch.float32)
         theta, scale = args[1].to(md), args[2].to(md)
         xn = x.to(md) / scale
         live = int(((xn.abs() - theta / scale >= 0) & (xn != 0)).sum())
-        nbytes = n * x.element_size() + 2 * x.shape[1] * 4 + n
-        flops = 10 * n + 4 * kw["T"] * live
-    elif name == "pack4":
+        C = x.shape[1]
+        nbytes = n * x.element_size() + 2 * C * 4 + n
+        flops = C + 8 * n + (3 * kw["T"] + 2) * live
+        if kw.get("decode_scale") is not None:
+            nbytes += C * 4 + n * x.element_size()
+            flops += n
+    elif entry == "pack4":
         nbytes, flops = n + n // 2, n          # a shift and an or a byte out
+    elif entry == "pack4_counts":
+        # counts in, bytes out; an add and a conversion a count, a shift
+        # and an or a byte out
+        nbytes, flops = n * x.element_size() + n // 2, 3 * n
     else:
         nbytes, flops = 3 * n, 3 * n           # and, shift, and a byte in
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -281,13 +311,13 @@ def boundary_bound(name, args, kw):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_boundary(name, args, kw, flush):
-    """(kernel ms, plain ms, bound ms, bound_by) of one boundary kernel on
-    the given (live) inputs."""
-    module, attr, plain = _boundary_fns()[name]
+def time_boundary(entry, args, kw, flush):
+    """(kernel ms, plain ms, bound ms, bound_by) of one boundary-kernel
+    entry point on the given (live) inputs."""
+    _, module, attr, plain = _boundary_fns()[entry]
     ms = cuda_ms(lambda: getattr(module, attr)(*args, **kw), flush)
     plain_ms = cuda_ms(lambda: plain(*args, **kw), flush)
-    return (ms, plain_ms) + boundary_bound(name, args, kw)
+    return (ms, plain_ms) + boundary_bound(entry, args, kw)
 
 
 class _Patch:
@@ -307,47 +337,89 @@ class _Patch:
 
 
 def _boundary_fns():
-    """Kernel name -> (module, CUDA launch attribute, plain version)."""
+    """Entry point -> (kernel it launches, module, CUDA launch attribute,
+    plain version).  ``pack4_counts`` (the bias fused into the pack) is a
+    launch of the ``pack4`` kernel."""
     from repro_torch.kernels import lif_encode as LE
     from repro_torch.kernels import pack4 as PK
-    return {"lif_encode": (LE, "lif_encode_cuda", LE.lif_encode_plain),
-            "pack4": (PK, "pack4_cuda", PK.pack4_plain),
-            "unpack4": (PK, "unpack4_cuda", PK.unpack4_plain)}
+    return {"lif_encode": ("lif_encode", LE, "lif_encode_cuda",
+                           LE.lif_encode_plain),
+            "pack4": ("pack4", PK, "pack4_cuda", PK.pack4_plain),
+            "pack4_counts": ("pack4", PK, "pack4_counts_cuda",
+                             PK.pack4_counts_plain),
+            "unpack4": ("unpack4", PK, "unpack4_cuda", PK.unpack4_plain)}
 
 
-def check_exact(name, *args, **kw):
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def same_bits(got, want):
+    """Whether every output of a boundary kernel equals its plain
+    version's: the same dtype, shape and values."""
+    got, want = _outputs(got), _outputs(want)
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+
+
+def check_exact(entry, *args, **kw):
     """One launch of a boundary kernel against its plain version on the
-    same CUDA inputs; they must be equal.  Returns the largest absolute
-    difference (0)."""
-    module, attr, plain = _boundary_fns()[name]
+    same CUDA inputs; every output (the counts and, with the decode
+    epilogue, the decoded values) must be equal.  Returns the largest
+    absolute difference (0)."""
+    _, module, attr, plain = _boundary_fns()[entry]
     got = getattr(module, attr)(*args, **kw)
     want = plain(*args, **kw)
     torch.cuda.synchronize()
-    if got.dtype != want.dtype or not torch.equal(got, want):
-        raise AssertionError(f"{name}: kernel differs from its plain version "
-                             f"on inputs of shape {tuple(args[0].shape)}")
-    return float((got.float() - want.float()).abs().max())
+    if not same_bits(got, want):
+        raise AssertionError(f"{entry}: kernel differs from its plain "
+                             f"version on inputs of shape "
+                             f"{tuple(args[0].shape)} ({kw})")
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(_outputs(got), _outputs(want)))
 
 
 def check_boundary_kernels():
-    """Every conformance case of ``lif_encode`` (in both compute types),
-    ``pack4`` and ``unpack4``, and random inputs at the serve shapes,
-    kernel == plain on the card.  Returns {kernel: largest abs
-    difference}."""
-    from repro_torch.kernels.cases import (LIF_CASES, PACK4_CASES,
-                                           lif_tensors, pack4_case)
+    """Every conformance case of ``lif_encode`` (in both compute types,
+    with and without the decode epilogue; the vector layout's edges also
+    on bf16 activations), ``pack4``, ``pack4_counts`` (f32 and bf16
+    counts, T = 7 and 15) and ``unpack4``, and random inputs at the
+    serve shapes, kernel == plain on the card.  Returns ({kernel: largest
+    abs difference}, {entry point: launches checked})."""
+    from repro_torch.kernels.cases import (LIF_CASES, LIF_TAIL_CASES,
+                                           PACK4_CASES, PACK4_TAIL_CASES,
+                                           lif_tensors, pack4_case,
+                                           pack4_counts_case)
     err = dict.fromkeys(BOUNDARY_KERNELS, 0.0)
-    for name in LIF_CASES:
+    n = collections.Counter()
+    bf = torch.bfloat16
+
+    def check(entry, *args, **kw):
+        kernel = _boundary_fns()[entry][0]
+        err[kernel] = max(err[kernel], check_exact(entry, *args, **kw))
+        n[entry] += 1
+
+    def check_lif(x, theta, scale, T):
+        # the decode factor as the codec computes it, in x's dtype
+        ds = (scale.to(x.dtype) / T).float()
+        for md in (torch.float32, bf):
+            check("lif_encode", x, theta, scale, T=T, math_dtype=md)
+            check("lif_encode", x, theta, scale, T=T, math_dtype=md,
+                  decode_scale=ds)
+
+    for name in LIF_CASES + LIF_TAIL_CASES:
         x, theta, scale, T = lif_tensors(name, "cuda")
-        err["lif_encode"] = max(err["lif_encode"], check_exact(
-            "lif_encode", x, theta, scale, T=T))
-        # the bf16 compute type, as the codec runs it on bf16 activations
-        err["lif_encode"] = max(err["lif_encode"], check_exact(
-            "lif_encode", x, theta, scale, T=T, math_dtype=torch.bfloat16))
-    for name in PACK4_CASES:
+        check_lif(x, theta, scale, T)
+        if name in LIF_TAIL_CASES:
+            check_lif(x.to(bf), theta, scale, T)
+    for name in PACK4_CASES + PACK4_TAIL_CASES:
         v = torch.tensor(pack4_case(name), device="cuda")
-        err["pack4"] = max(err["pack4"], check_exact("pack4", v))
-        err["unpack4"] = max(err["unpack4"], check_exact("unpack4", v))
+        check("pack4", v)
+        check("unpack4", v)
+        for T in (7, 15):
+            c = torch.tensor(pack4_counts_case(name, T), device="cuda")
+            for dt in (torch.float32, bf):
+                check("pack4_counts", c.to(dt), T)
     rng = np.random.RandomState(11)
     for M in (4, 120, 256):
         C = 1024
@@ -356,19 +428,98 @@ def check_boundary_kernels():
         theta = t(rng.uniform(0.0, 0.3, C).astype(np.float32))
         scale = t(np.exp(rng.uniform(-1.0, 1.0, C)).astype(np.float32))
         for T in (15, 7):
-            err["lif_encode"] = max(err["lif_encode"], check_exact(
-                "lif_encode", x, theta, scale, T=T))
+            check_lif(x, theta, scale, T)
             # bf16 activations, thresholds and scales, as the bf16 codec
             # hands them over (theta and scale as float32 values)
-            bf = torch.bfloat16
-            err["lif_encode"] = max(err["lif_encode"], check_exact(
-                "lif_encode", x.to(bf), theta.to(bf).float(),
-                scale.to(bf).float(), T=T, math_dtype=bf))
-        wire = t(rng.randint(0, 15, (M, C)).astype(np.uint8))
-        packed = t(rng.randint(0, 256, (M, C // 2)).astype(np.uint8))
-        err["pack4"] = max(err["pack4"], check_exact("pack4", wire))
-        err["unpack4"] = max(err["unpack4"], check_exact("unpack4", packed))
-    return err
+            check_lif(x.to(bf), theta.to(bf).float(), scale.to(bf).float(),
+                      T)
+        check("pack4", t(rng.randint(0, 15, (M, C)).astype(np.uint8)))
+        check("unpack4", t(rng.randint(0, 256, (M, C // 2))
+                           .astype(np.uint8)))
+        counts = t(rng.randint(-7, 8, (M, C)).astype(np.float32))
+        for dt in (torch.float32, bf):
+            check("pack4_counts", counts.to(dt), 7)
+    return err, n
+
+
+def time_boundary_kernels(runs, errs, flush):
+    """Time the launch floor (a one-element ``zero_()``) and the boundary
+    kernels on the live inputs of their codec's checked run (``runs``:
+    codec -> ``serve_codec`` result), at each shape the path gave them.
+    Returns their entries of the ``kernels`` line, each timed shape
+    under ``by_shape``."""
+    one = torch.zeros(1, device="cuda")
+    floor_ms = cuda_ms(lambda: one.zero_(), flush)
+    print(f"launch floor: a one-element zero_() takes {floor_ms:.5f} ms",
+          flush=True)
+    print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
+    timed = {name: [] for name in BOUNDARY_KERNELS}
+
+    def time_entry(entry, args, kw, **tags):
+        k_ms, p_ms, b_ms, b_by = time_boundary(entry, args, kw, flush)
+        row = {"shape": list(args[0].shape), "entry": entry, **tags,
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "over_floor_ms": k_ms - floor_ms}
+        timed[_boundary_fns()[entry][0]].append(row)
+        print(f"{entry} at {row['shape']} {tags}: kernel {k_ms:.5f} ms "
+              f"({k_ms - floor_ms:+.5f} over the floor), plain {p_ms:.5f} "
+              f"ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+
+    def live(chk, entry, n_shapes, epilogue=False):
+        """The live samples of one entry point, decode rows first."""
+        keys = sorted((k for k in chk.samples
+                       if k[0] == entry and k[2] == epilogue),
+                      key=lambda k: k[1])
+        if len(keys) != n_shapes:
+            raise AssertionError(f"{entry} (epilogue {epilogue}): live "
+                                 f"shapes {[k[1] for k in keys]}, expected "
+                                 f"{n_shapes}")
+        return [chk.samples[k] for k in keys]
+
+    # lif_encode in both compute modes: the decode rows with the epilogue
+    # (wire roundtrips) and without (coded psums), the prefill rows
+    # without (gathers and reduce-scatters) and, on the same inputs, with
+    for mode, run in (("float32", "spike"), ("bfloat16", "spike/bf16")):
+        chk = runs[run][1]
+        (dec_args, dec_kw), = live(chk, "lif_encode", 1, epilogue=True)
+        plain_samples = live(chk, "lif_encode", 2)
+        if plain_samples[0][0][0].shape != dec_args[0].shape:
+            raise AssertionError("lif_encode: the epilogue ran at another "
+                                 "row count than the decode's psums")
+        for args, kw in plain_samples:
+            time_entry("lif_encode", args, kw, math_dtype=mode,
+                       epilogue=False)
+            time_entry("lif_encode", args,
+                       {**kw, "decode_scale": dec_kw["decode_scale"]},
+                       math_dtype=mode, epilogue=True)
+    # the packs: today's uint8 entry on the biased wire of the live
+    # counts (built here, outside the clock), and the fused bias; unpack
+    chk = runs["spike_pack4"][1]
+    for args, kw in live(chk, "pack4_counts", 2):
+        wire = (args[0] + args[1]).to(torch.uint8)
+        time_entry("pack4", [wire], {})
+        time_entry("pack4_counts", args, kw)
+    for args, kw in live(chk, "unpack4", 2):
+        time_entry("unpack4", args, kw)
+    home = {"lif_encode": "spike", "pack4": "spike_pack4",
+            "unpack4": "spike_pack4"}
+    # the headline numbers are those of the served call at the decode
+    # rows: the served path packs only through ``pack4_counts``
+    served = {"lif_encode": "lif_encode", "pack4": "pack4_counts",
+              "unpack4": "unpack4"}
+    out = []
+    for name in BOUNDARY_KERNELS:
+        first = next(r for r in timed[name] if r["entry"] == served[name])
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": runs[home[name]][0][name],
+            "max_abs_err": errs[name],
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+            "library_ms": None, "shape": first["shape"],
+            "by_shape": timed[name]})
+    return out
 
 
 def check_count_matmul():
@@ -484,15 +635,20 @@ class LaunchCheck:
     """Check every kernel launch of a kernel-walk engine run against the
     plain version on the same (live) inputs.  Paged decode: o and lse,
     or the wire scale and lse, within float rounding, and the int8 wire
-    within one step.  Boundary kernels: exactly equal.  Count matmul: by
-    ``count_matmul_agrees`` against the plain version's float32 sum.
-    Keeps the first live inputs of each kernel at each shape (for
-    timing)."""
+    within one step.  Boundary kernels, every entry point: every output
+    exactly equal (``lif_encode``'s decoded values too).  Count matmul:
+    by ``count_matmul_agrees`` against the plain version's float32 sum.
+    Keeps the first live inputs of each entry point at each shape, with
+    and without the decode epilogue (for timing)."""
 
     def __init__(self):
         self.launches = collections.Counter()
+        self.entries = collections.Counter()     # by entry point
         self.flipped = 0         # wire values one step from the plain one
-        self.samples = {}        # (kernel, input shape) -> (args, kw)
+        # (entry point, input shape, epilogue) or ("count_matmul",
+        # (M, K, N)) -> (args, kw) of the first such live launch
+        self.samples = {}
+        self.epilogues = 0       # lif_encode launches with the epilogue
         self.cm_off = 0          # bf16 count-matmul outputs off bf16(plain)
         self.cm_outputs = 0
         self.cm_steps = 0        # most bf16 steps where the tolerance is
@@ -503,8 +659,9 @@ class LaunchCheck:
         from repro_torch.kernels import paged_decode as PD
         out = [_Patch(PD, "paged_decode_cuda", self._paged),
                _Patch(CM, "count_matmul_cuda", self._count_matmul)]
-        for name, (module, attr, plain) in _boundary_fns().items():
-            out.append(_Patch(module, attr, self._exact(name, plain)))
+        for entry, (kernel, module, attr, plain) in _boundary_fns().items():
+            out.append(_Patch(module, attr, self._exact(entry, kernel,
+                                                        plain)))
         return out
 
     def _count_matmul(self, orig, counts, w, scale, **kw):
@@ -528,16 +685,21 @@ class LaunchCheck:
                                  kw)
         return out
 
-    def _exact(self, name, plain):
+    def _exact(self, entry, kernel, plain):
         def launch(orig, *args, **kw):
             out = orig(*args, **kw)
-            if not torch.equal(out, plain(*args, **kw)):
-                raise AssertionError(f"{name}: a live launch differs from "
+            if not same_bits(out, plain(*args, **kw)):
+                raise AssertionError(f"{entry}: a live launch differs from "
                                      "the plain version")
-            self.launches[name] += 1
-            key = (name, tuple(args[0].shape))
+            self.launches[kernel] += 1
+            self.entries[entry] += 1
+            epilogue = kw.get("decode_scale") is not None
+            self.epilogues += epilogue
+            key = (entry, tuple(args[0].shape), epilogue)
             if key not in self.samples:
-                self.samples[key] = ([a.clone() for a in args], kw)
+                clone = lambda a: a.clone() if torch.is_tensor(a) else a  # noqa: E731
+                self.samples[key] = ([clone(a) for a in args],
+                                     {k: clone(v) for k, v in kw.items()})
             return out
         return launch
 
@@ -574,6 +736,7 @@ class WireTrace:
     def patches(self):
         from repro_torch.core import boundary, spike
         return [_Patch(spike, "encode", self._encode),
+                _Patch(spike, "encode_decode", self._encode_decode),
                 _Patch(boundary, "coded_combine_partials", self._combine)]
 
     def _decode_shaped(self, x):
@@ -586,6 +749,17 @@ class WireTrace:
                                 counts.detach().to(torch.int8),
                                 self.eng.slot_progress()))
         return counts
+
+    def _encode_decode(self, orig, x, params, cfg):
+        # a wire roundtrip: one event, unless it ran (and so reported)
+        # ``encode`` itself
+        seen = len(self.events)
+        counts, dec = orig(x, params, cfg)
+        if self._decode_shaped(x) and len(self.events) == seen:
+            self.events.append(("spike counts", x.detach().float().clone(),
+                                counts.detach().to(torch.int8),
+                                self.eng.slot_progress()))
+        return counts, dec
 
     def _combine(self, orig, wire, scale, lse, *a, **kw):
         self.events.append(("attention wire",
@@ -775,6 +949,18 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
     if checked != want_t or {k: check.launches[k] for k in want_t} != want_t:
         raise AssertionError(f"{label}: checked run launches {checked}, "
                              f"checked {check.launches}, expected {want_t}")
+    # the served roundtrips took the decode epilogue, the served packs
+    # the fused bias: every wire roundtrip is a launch with the epilogue,
+    # every pack a ``pack4_counts``
+    fused_want = {"epilogues": (2 * N_LAYERS * eng_t.decode_steps
+                                if codec == "spike" else 0),
+                  "pack4_counts": want_t["pack4"], "pack4": 0}
+    fused_got = {"epilogues": check.epilogues,
+                 "pack4_counts": check.entries["pack4_counts"],
+                 "pack4": check.entries["pack4"]}
+    if fused_got != fused_want:
+        raise AssertionError(f"{label}: fused variants {fused_got}, "
+                             f"expected {fused_want}")
     cut, splits = first_rounding_splits(tr_f, tr_r,
                                         2.0**-7 if bf16 else 1e-4)
     first = ", ".join(f"{n} at {kind} (values rounded from within "
@@ -791,7 +977,10 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
     print(f"streams {label}: launches checked on live inputs "
           f"{dict(check.launches)} ({check.flipped} paged-decode wire values "
           f"one step from the plain version's, every boundary-kernel launch "
-          f"exact{shadowed}); fused == reference on {compared} of {n_tok} "
+          f"exact, {check.epilogues} lif_encode launches with the decode "
+          f"epilogue, {check.entries['pack4_counts']} pack4 launches with "
+          f"the bias fused{shadowed}); fused == reference on {compared} of "
+          f"{n_tok} "
           f"tokens: {by_split} requests compared up to the first coded value "
           f"that rounded the other way [{first}], {by_margin} up to a margin "
           f"<= {MARGIN}",
@@ -799,17 +988,98 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
     return launches, check, tok_s, step_ms, checked
 
 
-def main() -> int:
+def kernels_per_step(cfg, params, codec):
+    """The device work of one decode step at a full batch, from
+    ``torch.profiler``: four requests admitted and decoding, and one step
+    with no admission profiled.  Returns ({"kernels": CUDA kernels,
+    "memory_ops": copies and sets}, {kernel name: launches}), or None
+    when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    eng = ServingEngine(cfg.replace(codec=codec), params, EngineConfig(
+        num_slots=4, max_seq=256, page_size=16, attn_kernel="fused"),
+        device="cuda")
+    rng = np.random.RandomState(5)
+    for rid in range(4):
+        eng.submit(Request(rid=rid, prompt=rng.randint(
+            0, cfg.vocab, 32).tolist(), max_new_tokens=16))
+    for _ in range(3):
+        eng.step()
+    pre, steps = eng.prefills, eng.decode_steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    if (eng.prefills, eng.decode_steps, eng.num_active) != (pre, steps + 1,
+                                                             4):
+        raise AssertionError(f"{codec}: the profiled step was not one "
+                             "decode step of four slots")
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    names = collections.Counter(dev)
+    mem = sum(n for k, n in names.items() if k.startswith(("Memcpy",
+                                                           "Memset")))
+    return {"kernels": len(dev) - mem, "memory_ops": mem}, names
+
+
+def full_width_f32():
+    """The served configuration, full-width ``qwen1.5-0.5b`` in float32,
+    and its seeded weights on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    cfg = get_config("qwen1.5-0.5b").replace(dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+
+
+def count_step_kernels(label, cfg, params):
+    """Print the CUDA kernels of one decode step under the codecs whose
+    boundaries run the boundary kernels (``spike_fused`` as the
+    control), for the package on ``sys.path``.  Raises when the profiler
+    records no device activity, so that the phase measures or fails."""
+    counts = {}
+    for codec in ("spike_fused", "spike", "spike_pack4"):
+        got = kernels_per_step(cfg, params, codec)
+        if got is None:
+            raise AssertionError(f"kernels per decode step {label} {codec}: "
+                                 "the profiler recorded no device activity")
+        counts[codec], names = got
+        top = ", ".join(f"{n} x {k[:48]}" for k, n in names.most_common(6))
+        print(f"kernels per decode step {label} {codec}: {counts[codec]} "
+              f"(most launched: {top})", flush=True)
+    print(json.dumps({"kernels_per_decode_step": {label: counts}}),
+          flush=True)
+    return counts
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found — run from a "
+    if argv and (len(argv) != 2 or argv[0] != "--kernels-per-step"):
+        print("usage: chip_smoke.py [--kernels-per-step SRC]",
+              file=sys.stderr)
+        return 2
+    src = Path(argv[1]).resolve() if argv else SRC
+    if not (src / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found — run from a "
               "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv:
+        # only the kernel count, for the package under ``src`` (another
+        # checkout's, to compare two commits in one call)
+        from repro_torch.kernels import build
+        build.build()
+        count_step_kernels(str(argv[1]), *full_width_f32())
+        return 0
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -829,7 +1099,7 @@ def main() -> int:
             if "registers" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    cfg = get_config("qwen1.5-0.5b").replace(dtype=torch.float32)
+    cfg, params = full_width_f32()
     if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff,
             cfg.vocab, cfg.hnn_mode, cfg.codec) != (
             N_LAYERS, 1024, 16, 64, 2816, 151936, "hnn", "spike_fused"):
@@ -855,9 +1125,12 @@ def main() -> int:
         print(f"check paged_decode serve_shape {str(dt)[6:]}: max abs err "
               f"{e:.3g}", flush=True)
 
-    errs = check_boundary_kernels()
+    errs, n_checked = check_boundary_kernels()
     for name in BOUNDARY_KERNELS:
-        print(f"check {name}: conformance cases and serve shapes exact "
+        entries = {e: n_checked[e] for e, f in _boundary_fns().items()
+                   if f[0] == name}
+        print(f"check {name}: conformance cases, vector-layout edges and "
+              f"serve shapes exact, launches per entry point {entries} "
               f"(max abs err {errs[name]:.3g})", flush=True)
     cm_err, cm_steps, cm_n = check_count_matmul()
     errs["count_matmul"] = cm_err
@@ -870,9 +1143,6 @@ def main() -> int:
     print(f"check repeatable: {n_rep} pairs of launches of paged_decode and "
           "count_matmul at their serve shapes equal bit for bit",
           flush=True)
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
 
     # warm-up (library handles, the caching allocator, first launches),
     # outside every timed and counted run
@@ -924,41 +1194,8 @@ def main() -> int:
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}]
 
-    # boundary kernels on the live inputs of their codec's checked run,
-    # at each shape the path gave them (decode rows first)
     flush = torch.empty(96 * 2**20 // 4, dtype=torch.float32, device="cuda")
-    home = {"lif_encode": "spike", "pack4": "spike_pack4",
-            "unpack4": "spike_pack4"}
-    for name in BOUNDARY_KERNELS:
-        launches, check = runs[home[name]][:2]
-        # lif_encode also in its bf16 mode, on the bf16 run's inputs
-        checks = [check] + ([runs["spike/bf16"][1]]
-                            if name == "lif_encode" else [])
-        by_shape = []
-        for chk in checks:
-            shapes = sorted(shape for k, shape in chk.samples if k == name)
-            if len(shapes) != 2:
-                raise AssertionError(f"{name}: live shapes {shapes}, "
-                                     "expected one decode and one prefill "
-                                     "shape")
-            for shape in shapes:
-                args, kw = chk.samples[name, shape]
-                k_ms, p_ms, b_ms, b_by = time_boundary(name, args, kw, flush)
-                mode = {"math_dtype": str(kw["math_dtype"])[6:]} if (
-                    "math_dtype" in kw) else {}
-                by_shape.append({"shape": list(shape), **mode, "ms": k_ms,
-                                 "plain_ms": p_ms, "bound_ms": b_ms,
-                                 "bound_by": b_by})
-                print(f"{name} at {list(shape)} {mode}: kernel {k_ms:.5f} "
-                      f"ms, plain {p_ms:.5f} ms, bound {b_ms:.6f} ms "
-                      f"({b_by})", flush=True)
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], **{k: v for k, v in by_shape[0].items()
-                                           if k != "shape"},
-            "library_ms": None, "shape": by_shape[0]["shape"],
-            "by_shape": by_shape})
+    kernels.extend(time_boundary_kernels(runs, errs, flush))
 
     # the count matmul on the bf16 spike run's live wire counts, at the
     # decode and the prefill shape of the MLP input ([M, 1024] x
@@ -995,6 +1232,9 @@ def main() -> int:
         **{k: v for k, v in by_shape[0].items()
            if k not in ("shape", "tc_bound_ms")},
         "shape": by_shape[0]["shape"], "by_shape": by_shape})
+    # after every timing, so that the profiler's device tracing cannot
+    # touch one
+    count_step_kernels("this checkout", cfg, params)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1003,4 +1243,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -9,9 +9,11 @@ leading axis of length 1), so the codec's numerics — and therefore the
 served tokens — are the reference's at tp=1.
 
 All six modes are ported: ``none``, ``int8``, ``spike`` (the T-tick
-IF encoder, through the ``lif_encode`` kernel when serving),
-``spike_fused`` (the closed form), ``spike_pack4`` (closed form at T=7,
-two counts per byte through the ``pack4``/``unpack4`` kernels) and
+IF encoder, through the ``lif_encode`` kernel when serving; a wire
+roundtrip takes its decode from the same launch), ``spike_fused`` (the
+closed form), ``spike_pack4`` (closed form at T=7, two counts per byte
+through the ``pack4``/``unpack4`` kernels, the bias fused into the
+pack) and
 ``sparse_topk`` (the top fraction of counts per token as (index, count)
 pairs on the gather; dense counts elsewhere, as in the reference).  A
 world size above 1 raises ``NotImplementedError``.  Gradients use the
@@ -93,8 +95,7 @@ def _encode_local(x, params, codec: BoundaryCodec):
     counts = spike.encode(x, params, codec.cfg)      # float in {-T..T}
     if codec.mode == "spike_pack4":
         # {0..14} fits 4 bits: two counts per byte
-        wire = spike.pack4(spike.counts_to_wire_u8(counts, codec.cfg.T))
-        return wire, None, counts
+        return spike.pack4_counts(counts, codec.cfg.T), None, counts
     return counts.to(torch.int8), None, counts
 
 
@@ -118,9 +119,9 @@ def _local_roundtrip(x, params, codec: BoundaryCodec, consumers=()):
                           keepdim=True)
         s = torch.clamp(amax, min=1e-6) / 127.0
         return spike.round_ste(x / s) * s
-    counts = spike.encode(x, params, codec.cfg)
+    counts, decoded = spike.encode_decode(x, params, codec.cfg)
     count_matmul_shadow(counts, params, codec, consumers, x.dtype)
-    return spike.decode(counts, params, codec.cfg, x.dtype)
+    return decoded
 
 
 def _check_consumers(codec: BoundaryCodec, consumers):
@@ -132,9 +133,10 @@ def _check_consumers(codec: BoundaryCodec, consumers):
 def count_matmul_shadow(counts, params, codec: BoundaryCodec, consumers,
                         dtype):
     """For each weight [K, N] in ``consumers``, launch
-    ``ops.count_matmul`` on the wire's counts [..., K] as int8 rows, with
-    the decode's scale ``exp(log_scale)`` in ``dtype`` and the result in
-    ``dtype``; the results are dropped (see the module docstring)."""
+    ``ops.count_matmul`` on the wire's counts [..., K] (int8, or the
+    float counts of ``spike.encode``) as int8 rows, with the decode's
+    scale ``exp(log_scale)`` in ``dtype`` and the result in ``dtype``;
+    the results are dropped (see the module docstring)."""
     if not consumers:
         return
     K = counts.shape[-1]

@@ -11,9 +11,12 @@ run:
 * ``if_rate_encode`` / ``lif_rate_encode_signed`` — the paper-faithful
   T-tick integrate-and-fire encoder (on/off populations), with the
   surrogate gradient inside the tick loop,
-* the wire helpers ``counts_to_wire_u8`` / ``wire_u8_to_counts`` and the
-  4-bit two-per-byte ``pack4`` / ``unpack4``,
-* ``encode`` / ``decode`` over one boundary's learnable params.
+* the wire's 4-bit two-per-byte packing: ``pack4_counts`` (the counts
+  biased by T and packed, as the reference's
+  ``pack4(counts_to_wire_u8(counts, T))``), ``unpack4`` and
+  ``wire_u8_to_counts``,
+* ``encode`` / ``decode`` over one boundary's learnable params, and
+  ``encode_decode``, both in one ``lif_encode`` launch where it can.
 
 Rounding is ``torch.round`` (half to even), exactly as ``jnp.round``,
 so the counts on the wire equal the reference's bit for bit.  The IF
@@ -21,8 +24,11 @@ encoder is not the closed form: at a drive within rounding of a
 half-integer tick count the two can differ by one, and ``encode`` with
 ``SpikeConfig(faithful=True)`` follows the IF encoder, as the reference
 does.  Without gradients (serving) that branch runs the ``lif_encode``
-kernel through ``kernels.ops``, and ``pack4`` / ``unpack4`` run theirs;
-on CPU tensors each runs its kernel's plain version.
+kernel through ``kernels.ops``, ``pack4_counts`` biases and packs the
+counts in one launch of the ``pack4`` kernel, and ``unpack4`` runs its
+own; on CPU tensors each runs its kernel's plain version.  A served wire
+roundtrip (``encode_decode``) takes the decode from the ``lif_encode``
+launch's epilogue.
 """
 from __future__ import annotations
 
@@ -118,27 +124,24 @@ def lif_rate_encode_signed(x, theta, T: int):
 # ---------------------------------------------------------------------------
 
 
-def counts_to_wire_u8(counts, T: int):
-    """Signed counts -> biased uint8 (value + T).  Needs 2T+1 <= 256."""
-    return (counts + T).to(torch.uint8)
-
-
 def wire_u8_to_counts(wire, T: int, dtype=torch.float32):
     return wire.to(dtype) - T
 
 
-def pack4(wire):
-    """Pack uint8 values < 16 two per byte along the last axis (even):
-    ``out[..., k] = v[2k] | v[2k+1] << 4``.  Runs the ``pack4`` kernel
-    on a CUDA tensor."""
-    C = wire.shape[-1]
-    out = kops.pack4(wire.reshape(-1, C))
-    return out.reshape(*wire.shape[:-1], C // 2)
+def pack4_counts(counts, T: int):
+    """Signed counts (float32 or bfloat16) biased to uint8,
+    ``(counts + T).to(uint8)`` (needs 2T+1 <= 256), and packed two per
+    byte along the last axis (even): ``out[..., k] = v[2k] | v[2k+1] <<
+    4``.  One launch of the ``pack4`` kernel on a CUDA tensor."""
+    C = counts.shape[-1]
+    out = kops.pack4_counts(counts.reshape(-1, C), T)
+    return out.reshape(*counts.shape[:-1], C // 2)
 
 
 def unpack4(packed):
-    """The inverse of ``pack4``; runs the ``unpack4`` kernel on a CUDA
-    tensor."""
+    """Unpack two 4-bit values a byte along the last axis, the inverse
+    of the pack in ``pack4_counts`` (giving the biased uint8 wire); runs
+    the ``unpack4`` kernel on a CUDA tensor."""
     C2 = packed.shape[-1]
     out = kops.unpack4(packed.reshape(-1, C2))
     return out.reshape(*packed.shape[:-1], 2 * C2)
@@ -203,3 +206,28 @@ def encode(x, params: dict, cfg: SpikeConfig):
 def decode(counts, params: dict, cfg: SpikeConfig, dtype=torch.bfloat16):
     scale = torch.exp(params["log_scale"]).to(dtype)
     return rate_decode_signed(counts, scale, cfg.T).to(dtype)
+
+
+def encode_decode(x, params: dict, cfg: SpikeConfig):
+    """``encode`` then ``decode`` in x's dtype: returns ``(counts,
+    decoded)``, the decoded value equal to ``decode(encode(x, params,
+    cfg), params, cfg, x.dtype)`` bit for bit.
+
+    On a CUDA activation with the faithful encoder and no gradient
+    wanted, one ``lif_encode`` launch gives both: int8 counts and, from
+    its epilogue, ``counts * (scale / T)`` with ``scale / T`` computed
+    here as ``decode`` computes it.  Otherwise (CPU tensors, the closed
+    form, a gradient) it runs ``encode`` then ``decode``, and the counts
+    are ``encode``'s floats.  Either way ``counts.to(torch.int8)`` is
+    the wire."""
+    if (cfg.faithful and x.dtype in (torch.float32, torch.bfloat16)
+            and not needs_grad(x, params["theta"], params["log_scale"])
+            and kops._on_cuda("lif_encode", x)):
+        scale = torch.exp(params["log_scale"]).to(x.dtype)
+        C = x.shape[-1]
+        counts, dec = kops.lif_encode(
+            x.reshape(-1, C), params["theta"].to(x.dtype), scale, T=cfg.T,
+            math_dtype=x.dtype, decode_scale=scale / cfg.T)
+        return counts.reshape(x.shape), dec.reshape(x.shape)
+    counts = encode(x, params, cfg)
+    return counts, decode(counts, params, cfg, x.dtype)

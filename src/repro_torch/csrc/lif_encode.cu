@@ -1,63 +1,83 @@
 // T-tick on/off integrate-and-fire spike encoder for Hopper (sm_90a):
-// activation -> signed spike count in {-T..T}, int8.
+// activation -> signed spike count in {-T..T}, int8, and optionally the
+// rate decode of those counts.
 //
 // Replaces the TPU kernel `lif_encode_pallas` / `_lif_encode_kernel`
 // (src/repro/kernels/lif_encode.py). Plain version and wrapper:
 // src/repro_torch/kernels/lif_encode.py. Bound with ctypes through the
 // plain C function `lif_encode_launch` at the bottom of this file.
 //
-// One thread per element of x [M, C] (row-major, channel c = i % C).
-// In f32, as the TPU kernel computes: xn = x / scale[c]; the on and off
-// populations integrate clip(xn, 0, 1) and clip(-xn, 0, 1) from a
-// membrane of 0.5 for T ticks, each tick `u = u + d; fire if u >= 1;
-// u -= 1 on a spike` (subtract reset), all in registers; the count
-// difference is written once, gated by |xn| - theta[c] / scale[c] >= 0.
-// At most one population fires: the other's drive is 0 and its
-// membrane stays at 0.5. So the thread integrates clip(|xn|, 0, 1) once
-// (-xn == |xn| exactly for xn < 0), only where the gate is open, and
-// gives the count the sign of xn: the same count as the difference.
+// What it computes, for x [M, C] and channel c, in f32 as the TPU
+// kernel computes: xn = x / scale[c]; the on and off populations
+// integrate clip(xn, 0, 1) and clip(-xn, 0, 1) from a membrane of 0.5
+// for T ticks, each tick `u = u + d; fire if u >= 1; u -= 1 on a spike`
+// (subtract reset); the count difference is written, gated by
+// |xn| - theta[c] / scale[c] >= 0. At most one population fires: the
+// other's drive is 0 and its membrane stays at 0.5. So the kernel
+// integrates clip(|xn|, 0, 1) once (-xn == |xn| exactly for xn < 0),
+// with a drive of 0 where the gate is closed, and gives the count the
+// sign of xn: the same count as the difference.
 //
 // The gate compares normalised values, as the JAX `spike` codec does
 // (`spike.encode` with `faithful=True` divides x and theta by scale
 // before `lif_rate_encode_signed`), not the raw `|x| >= theta` of the
 // TPU kernel: the two differ only where fl(|x|/s) == fl(theta/s) while
-// |x| < theta, and the served path must match the codec. theta / scale
-// is one IEEE division per element, the same correctly rounded f32
-// value the codec computes per channel.
+// |x| < theta, and the served path must match the codec.
 //
 // bf16 mode (`math_bf16` = 1), for bfloat16 activations: the JAX codec
 // then computes in the activation's dtype, and XLA rounds every op to
-// bf16. So the kernel rounds x, theta and scale to bf16 and applies
-// __float2bfloat16_rn after each divide, subtract and add, and to each
-// operand it compares: xn = bf16(x / s), thn = bf16(theta / s), the gate
-// bf16(|xn| - thn) >= 0, each tick u = bf16(u + d), fire on
-// bf16(u - 1) >= 0, u = bf16(u - 1). Every op is an f32 op on bf16
-// values followed by one rounding, the same value PyTorch's bf16 ops
-// give on the CPU and the card.
+// bf16, as PyTorch's bf16 ops do (an f32 op on bf16 values, then one
+// rounding). So the kernel rounds x, theta and scale to bf16 and rounds
+// after each divide and subtract of the gate: xn = bf16(x / s),
+// thn = bf16(theta / s), the gate bf16(|xn| - thn) >= 0.
+//
+// The tick, u = r(u + d); fire on r(u - 1) >= 0; on a spike u = r(u - 1)
+// (r: the compute type's rounding), is computed in a form that gives the
+// same bits with fewer operations. The membrane stays in [0, 2) and
+// d in [0, 1], so u - 1 >= 0 exactly when u >= 1, and then u - 1 is
+// exact (Sterbenz): the tick is w = r(u + d); f = (w >= 1 ? 1 : 0);
+// u = w - f, three operations, with no rounding after the add. In bf16
+// the add is one correctly rounded bf16 add (`fma.rn.bf16x2` with a
+// factor of 1), on both channels of a thread at once: rounding the f32
+// sum of two bf16 values to bf16 is that same rounding (24 >= 2 x 8 + 2
+// bits, so the double rounding is innocuous), and the compare and the
+// exact subtraction are bf16x2 operations too. A tiny drive flushed to
+// 0 by the bf16 unit changes no count: a membrane that such a drive
+// moves never reaches 1 in T <= 127 ticks.
+//
+// Decode epilogue (`dscale` not null): the caller passes the decode's
+// per-channel factor exp(log_scale) / T as the JAX `spike.decode`
+// computes it in x's dtype, and the kernel also writes
+// decoded = count * dscale[c], rounded once to x's dtype: the single
+// multiply of `rate_decode_signed`. A count (|count| <= 127) times a
+// bf16 value is exact in f32, so the one rounding is PyTorch's.
 //
 // Exactness: the divisions are IEEE (never build with --use_fast_math,
-// -prec-div=false or -ftz=true); the tick loop has no multiply, so no
-// FMA contraction can change it.
+// -prec-div=false or -ftz=true); the tick has no multiply, so no FMA
+// contraction can change it.
 //
-// What bounds it: memory — x read once (4 bytes), the count written once
-// (1 byte), per element; at most ~4T operations per element (one
-// population's add, compare, reset and count per tick) stay below the
-// card's f32 rate. The simple design reads x coalesced, one element
-// per thread; wider loads and fusing the encode into the producer of x
-// are the later steps.
+// What bounds it: at [256, 1024] the cold read of x (after a write that
+// flushes the L2) and the tick arithmetic (3 operations per tick of an
+// element, one IEEE divide) take about a microsecond each; at the
+// decode rows, [4, 1024], the launch itself. Design: a thread owns two
+// channels of one row (a 2-D grid: channel pairs by rows). It issues
+// its loads of x, theta, scale and the decode factor before any
+// arithmetic, so each thread waits on memory once, and keeps both
+// channels' tick chains in registers. Threads owning more channels or
+// more rows, to share the per-channel work, were slower at both row
+// counts: the ticks, not the per-channel divide, dominate, and fewer
+// threads hide their latency worse. An odd channel count, or a buffer
+// that is not aligned for the pair accesses, takes scalar loads and
+// stores (kVec = false).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr long kMaxRows = 65535;  // gridDim.y; blocks loop over more rows
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using repro::to_f32;
 
 // The value of an op's f32 result in the compute type: itself in f32,
 // rounded to the nearest bf16 (ties to even) in bf16 mode.
@@ -70,64 +90,175 @@ __device__ __forceinline__ float clip01(float v) {
   return v > 0.0f ? (v < 1.0f ? v : 1.0f) : 0.0f;
 }
 
-template <bool kBf16>
-__device__ __forceinline__ int if_count(float drive, int T) {
-  float u = 0.5f;
-  int count = 0;
-  for (int t = 0; t < T; ++t) {
-    u = rnd<kBf16>(u + drive);
-    if (rnd<kBf16>(u - 1.0f) >= 0.0f) {
-      u = rnd<kBf16>(u - 1.0f);
-      ++count;
-    }
-  }
-  return count;
+__device__ __forceinline__ void load_pair(const float* p, float* v) {
+  const float2 w = *reinterpret_cast<const float2*>(p);
+  v[0] = w.x;
+  v[1] = w.y;
+}
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float* v) {
+  const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v[0] = w.x;
+  v[1] = w.y;
+}
+__device__ __forceinline__ void store_pair(float* p, const float* v) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
 }
 
-template <typename X, bool kBf16>
+// T ticks of the two drives d[0..1] (values of the compute type in
+// [0, 1]); n[v] receives the spike count of each. The count is not
+// summed tick by tick: the resets subtract exactly 1, so
+// u_T = 0.5 + T d + E - n, where E, the sum of the T adds' rounding
+// errors, is below T ulp(2) / 2 = T 2^-24 (f32) or T 2^-8 (bf16,
+// under 0.5 for T <= 127). So n = rint(0.5 + T d - u_T), computed in
+// f32 to well within the remaining margin.
+template <bool kBf16>
+__device__ __forceinline__ void ticks(const float* d, int T, int* n) {
+  float u[2];
+  if constexpr (kBf16) {
+    constexpr unsigned kOne = 0x3F803F80u;       // bf16x2 (1, 1)
+    constexpr unsigned kMinusOne = 0xBF80BF80u;  // bf16x2 (-1, -1)
+    const __nv_bfloat162 dd = __floats2bfloat162_rn(d[0], d[1]);
+    const unsigned d2 = *reinterpret_cast<const unsigned*>(&dd);
+    unsigned m = 0x3F003F00u;                    // bf16x2 (0.5, 0.5)
+    for (int t = 0; t < T; ++t) {
+      unsigned w, f;
+      asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(w) : "r"(m), "r"(kOne),
+          "r"(d2));
+      asm("set.ge.bf16x2.bf16x2 %0, %1, %2;" : "=r"(f) : "r"(w), "r"(kOne));
+      asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(m) : "r"(f),
+          "r"(kMinusOne), "r"(w));
+    }
+    const float2 mf = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&m));
+    u[0] = mf.x;
+    u[1] = mf.y;
+  } else {
+    u[0] = u[1] = 0.5f;
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const float w = u[v] + d[v];
+        float f;                                  // 1.0f on a spike
+        asm("set.ge.f32.f32 %0, %1, 0f3F800000;" : "=f"(f) : "f"(w));
+        u[v] = w - f;
+      }
+  }
+#pragma unroll
+  for (int v = 0; v < 2; ++v)
+    n[v] = (int)rintf(__fmaf_rn((float)T, d[v], 0.5f) - u[v]);
+}
+
+template <typename X, bool kBf16, bool kVec>
 __global__ void __launch_bounds__(kThreads) lif_encode_kernel(
     const X* __restrict__ x, const float* __restrict__ theta,
-    const float* __restrict__ scale, int8_t* __restrict__ out, long n,
-    int C, int T) {
-  long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int c = (int)(i % C);
-  const float s = rnd<kBf16>(scale[c]);
-  const float xn = rnd<kBf16>(rnd<kBf16>(to_f32(x[i])) / s);
-  const float thn = rnd<kBf16>(rnd<kBf16>(theta[c]) / s);
-  const float a = fabsf(xn);
-  const int count =
-      rnd<kBf16>(a - thn) >= 0.0f ? if_count<kBf16>(clip01(a), T) : 0;
-  out[i] = (int8_t)(xn < 0.0f ? -count : count);
+    const float* __restrict__ scale, const float* __restrict__ dscale,
+    int8_t* __restrict__ out, X* __restrict__ dec, long M, int C, int T) {
+  const int c0 = 2 * (blockIdx.x * kThreads + threadIdx.x);
+  if (c0 >= C) return;
+  const bool two = kVec || c0 + 1 < C;   // the second channel exists
+  const int c1 = two ? c0 + 1 : c0;
+  const bool decode = dscale != nullptr;
+  for (long row = blockIdx.y; row < M; row += gridDim.y) {
+    const long off = row * C + c0;
+    // every load before any arithmetic
+    float xv[2];
+    if (kVec) {
+      load_pair(x + off, xv);
+    } else {
+      xv[0] = to_f32(x[off]);
+      xv[1] = to_f32(x[off + (c1 - c0)]);
+    }
+    const float sc[2] = {scale[c0], scale[c1]};
+    const float th[2] = {theta[c0], theta[c1]};
+    float ds[2] = {0.0f, 0.0f};
+    if (decode) {
+      ds[0] = dscale[c0];
+      ds[1] = dscale[c1];
+    }
+
+    float d[2];
+    bool neg[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const float s = rnd<kBf16>(sc[v]);
+      const float thn = rnd<kBf16>(rnd<kBf16>(th[v]) / s);
+      const float xn = rnd<kBf16>(rnd<kBf16>(xv[v]) / s);
+      const float a = fabsf(xn);
+      d[v] = rnd<kBf16>(a - thn) >= 0.0f ? clip01(a) : 0.0f;
+      neg[v] = xn < 0.0f;
+    }
+    int n[2];
+    ticks<kBf16>(d, T, n);
+
+    int c[2];
+    float y[2];
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      c[v] = neg[v] ? -n[v] : n[v];
+      // the decode factor in x's dtype, then one IEEE multiply
+      y[v] = (float)c[v] * rnd<sizeof(X) == 2>(ds[v]);
+    }
+    if (kVec) {
+      *reinterpret_cast<uint16_t*>(out + off) =
+          (uint16_t)((c[0] & 0xFF) | (c[1] & 0xFF) << 8);
+      if (decode) store_pair(dec + off, y);
+    } else {
+      out[off] = (int8_t)c[0];
+      if (decode) repro::store(dec + off, y[0]);
+      if (two) {
+        out[off + 1] = (int8_t)c[1];
+        if (decode) repro::store(dec + off + 1, y[1]);
+      }
+    }
+  }
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename X>
-void launch(const void* x, const float* theta, const float* scale,
-            int8_t* out, long n, int C, int T, int math_bf16,
-            cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  const X* xt = static_cast<const X*>(x);
-  if (math_bf16)
-    lif_encode_kernel<X, true><<<blocks, kThreads, 0, stream>>>(
-        xt, theta, scale, out, n, C, T);
-  else
-    lif_encode_kernel<X, false><<<blocks, kThreads, 0, stream>>>(
-        xt, theta, scale, out, n, C, T);
+void launch(const void* xp, const float* theta, const float* scale,
+            const float* dscale, int8_t* out, void* decp, long M, int C,
+            int T, int math_bf16, cudaStream_t stream) {
+  const X* x = static_cast<const X*>(xp);
+  X* dec = static_cast<X*>(decp);
+  const bool vec = C % 2 == 0 && aligned(x, 2 * sizeof(X)) &&
+                   aligned(out, 2) &&
+                   (dec == nullptr || aligned(dec, 2 * sizeof(X)));
+  const dim3 grid((unsigned)(((C + 1) / 2 + kThreads - 1) / kThreads),
+                  (unsigned)(M < kMaxRows ? M : kMaxRows));
+#define LIF_LAUNCH(B, V)                                           \
+  lif_encode_kernel<X, B, V><<<grid, kThreads, 0, stream>>>(       \
+      x, theta, scale, dscale, out, dec, M, C, T)
+  if (math_bf16) {
+    if (vec) LIF_LAUNCH(true, true); else LIF_LAUNCH(true, false);
+  } else {
+    if (vec) LIF_LAUNCH(false, true); else LIF_LAUNCH(false, false);
+  }
+#undef LIF_LAUNCH
 }
 
 }  // namespace
 
 // x [M, C] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); theta, scale [C] f32;
 // out [M, C] int8; math_bf16 = 1 computes in bf16 (see above), 0 in f32.
-// Launches on `stream`; returns cudaGetLastError().
+// With dscale [C] f32 (else null), dec [M, C] in x's dtype receives
+// out * dscale rounded once. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int lif_encode_launch(const void* x, const float* theta,
-                                 const float* scale, int8_t* out, long M,
-                                 int C, int T, int x_bf16, int math_bf16,
+                                 const float* scale, const float* dscale,
+                                 int8_t* out, void* dec, long M, int C, int T,
+                                 int x_bf16, int math_bf16,
                                  cudaStream_t stream) {
-  const long n = M * (long)C;
   if (x_bf16)
-    launch<__nv_bfloat16>(x, theta, scale, out, n, C, T, math_bf16, stream);
+    launch<__nv_bfloat16>(x, theta, scale, dscale, out, dec, M, C, T,
+                          math_bf16, stream);
   else
-    launch<float>(x, theta, scale, out, n, C, T, math_bf16, stream);
+    launch<float>(x, theta, scale, dscale, out, dec, M, C, T, math_bf16,
+                  stream);
   return (int)cudaGetLastError();
 }

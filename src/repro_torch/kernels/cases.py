@@ -14,7 +14,12 @@ from a numpy ``RandomState`` or built exactly:
   encoder and the closed form part); zeros, -0.0, saturation and zero
   thresholds;
 * ``pack4`` / ``unpack4``: every byte value, and random 4-bit wires of
-  ragged row counts;
+  ragged row counts; ``pack4_counts``: signed counts in {-T..T} of the
+  same shapes;
+* the edges of the boundary kernels' vector layouts
+  (``LIF_TAIL_CASES``, ``PACK4_TAIL_CASES``): channel counts that are
+  no multiple of the vector width (odd ones among them), ragged ends,
+  over 1, 4 and 257 rows, and more rows than one grid dimension holds;
 * ``count_matmul``: counts spanning -T..T with all-zero rows and
   columns, random weights and positive scales, over ragged and serve
   shapes (``COUNT_MATMUL_SHAPES``) and the edges of each CUDA design
@@ -98,6 +103,14 @@ def to_tensors(arrays, device, pool_dtype=torch.float32):
 
 LIF_CASES = ("random_t15", "random_t7", "random_bf16", "half_ticks_t15",
              "half_ticks_t7", "edges")
+#: rows and channels at the edges of the kernels' vector layouts (a
+#: lif_encode thread takes two channels, a pack thread 16 bytes):
+#: random activations at T = 15
+TAIL_ROWS = (1, 4, 257)
+TAIL_CHANNELS = (1, 2, 6, 8, 10, 17, 1030)
+#: and 70000 rows of 2, more than the 65535 blocks of a grid's rows
+LIF_TAIL_CASES = tuple(f"tail_m{M}_c{C}" for M in TAIL_ROWS
+                       for C in TAIL_CHANNELS) + ("tail_m70000_c2",)
 
 
 def _half_ticks(T, scales):
@@ -138,6 +151,13 @@ def lif_case(name):
             x = torch.tensor(x).to(torch.bfloat16).float().numpy()
             return x, theta, scale, T, "bfloat16"
         return x, theta, scale, T, "float32"
+    if name.startswith("tail_"):
+        M, C = (int(v) for v in name[len("tail_m"):].split("_c"))
+        rng = np.random.RandomState(M * 10007 + C)
+        x = (rng.standard_normal((M, C)) * 1.5).astype(np.float32)
+        theta = rng.uniform(0.0, 0.3, C).astype(np.float32)
+        scale = np.exp(rng.uniform(-1.0, 1.0, C)).astype(np.float32)
+        return x, theta, scale, 15, "float32"
     if name.startswith("half_ticks"):
         T = int(name[len("half_ticks_t"):])
         x, scale = _half_ticks(T, [1.0, 0.75, 2.5])
@@ -161,17 +181,33 @@ def lif_tensors(name, device):
 # ---------------------------------------------------------------------------
 
 PACK4_CASES = ("all_bytes", "wire_ragged", "wire_row")
+#: the vector layout's edges for the packs (16 bytes in a thread): the
+#: even channel counts of ``TAIL_CHANNELS``
+PACK4_TAIL_CASES = tuple(f"tail_m{M}_c{C}" for M in TAIL_ROWS
+                         for C in TAIL_CHANNELS if C % 2 == 0)
 
 
 def pack4_case(name):
     """uint8 ``[M, C]`` (C even) of a named case: every byte value as 8
-    rows of 32 (to pack and to unpack), or random 4-bit wires — the
-    biased counts of ``spike_pack4`` — over 37 rows of 18 or 1 row of
-    2048."""
+    rows of 32 (to pack and to unpack), random 4-bit wires — the biased
+    counts of ``spike_pack4`` — over 37 rows of 18 or 1 row of 2048, or
+    (``tail_m{M}_c{C}``) random bytes of any value."""
     if name == "all_bytes":
         return np.arange(256, dtype=np.uint8).reshape(8, 32)
+    if name.startswith("tail_"):
+        M, C = (int(v) for v in name[len("tail_m"):].split("_c"))
+        rng = np.random.RandomState(M * 10007 + C)
+        return rng.randint(0, 256, (M, C)).astype(np.uint8)
     shape = {"wire_ragged": (37, 18), "wire_row": (1, 2048)}[name]
     return np.random.RandomState(3).randint(0, 15, shape).astype(np.uint8)
+
+
+def pack4_counts_case(name, T):
+    """float32 signed counts in {-T..T} of the shape of ``pack4_case(name)``
+    (exact in bf16 too)."""
+    shape = pack4_case(name).shape
+    rng = np.random.RandomState(shape[0] * 131 + shape[1] + T)
+    return rng.randint(-T, T + 1, shape).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

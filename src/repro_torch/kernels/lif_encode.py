@@ -25,12 +25,20 @@ then ``x/s``, ``theta/s``, the gate's ``|x/s| - theta/s``, each tick's
 is what PyTorch's bf16 ops compute, so the plain version runs the same
 code on bf16 tensors.
 
-The CUDA kernel (``csrc/lif_encode.cu``) runs one thread per element
-with the tick loop in registers.  At most one population of an element
-can fire (the other's drive is 0, and a membrane of 0.5 never reaches
-1), so the kernel integrates only ``clip(|x/s|, 0, 1)``, and only where
-the gate is open, and signs the count.  What bounds it on the card is
-memory: x read once and one int8 count written per element.
+With ``decode_scale`` [C] — the decode's ``exp(log_scale) / T`` as
+``spike.decode`` computes it in x's dtype — each version also returns
+``decoded = counts * decode_scale`` in x's dtype: the single multiply
+of ``rate_decode_signed``, so a served wire roundtrip runs as one
+launch and its decoded values are the codec's bit for bit.
+
+The CUDA kernel (``csrc/lif_encode.cu``) gives each thread two
+channels of one row, loads everything before any arithmetic, and keeps
+both tick chains in registers (in bf16 as one packed pair).  At most
+one population of an element can fire (the other's drive is 0, and a
+membrane of 0.5 never reaches 1), so the kernel integrates only
+``clip(|x/s|, 0, 1)``, with a drive of 0 where the gate is closed, and
+signs the count.  What bounds it on the card is the launch at decode
+rows and, at prefill rows, the read of x and the tick arithmetic.
 
 ``ops.lif_encode`` is the wrapper callers use: CPU tensors take
 ``lif_encode_plain``, CUDA tensors ``lif_encode_cuda``.
@@ -67,9 +75,12 @@ def if_count(drive, T: int, step=heaviside):
     return count
 
 
-def lif_encode_plain(x, theta, scale, *, T: int = 15, math_dtype=F32):
+def lif_encode_plain(x, theta, scale, *, T: int = 15, math_dtype=F32,
+                     decode_scale=None):
     """x [M, C] float -> int8 signed counts [M, C]; theta, scale [C];
-    every op computed in ``math_dtype`` (float32 or bfloat16)."""
+    every op computed in ``math_dtype`` (float32 or bfloat16).  With
+    ``decode_scale`` [C], returns ``(counts, counts * decode_scale)``,
+    the product in x's dtype."""
     if math_dtype not in (F32, BF16):
         raise ValueError(f"lif_encode: math_dtype must be float32 or "
                          f"bfloat16, got {math_dtype}")
@@ -78,14 +89,17 @@ def lif_encode_plain(x, theta, scale, *, T: int = 15, math_dtype=F32):
     gate = (torch.abs(xn) - theta.to(math_dtype) / s) >= 0.0
     c = (if_count(torch.clamp(xn, 0.0, 1.0), T)
          - if_count(torch.clamp(-xn, 0.0, 1.0), T))
-    return torch.where(gate, c, torch.zeros_like(c)).to(torch.int8)
+    counts = torch.where(gate, c, torch.zeros_like(c)).to(torch.int8)
+    if decode_scale is None:
+        return counts
+    return counts, counts.to(x.dtype) * decode_scale.to(x.dtype)
 
 
 def _library():
     fn = build.load("lif_encode").lif_encode_launch
     if fn.argtypes is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        fn.argtypes = [P, P, P, P, L, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, L, I, I, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -95,37 +109,43 @@ def _require(cond: bool, msg: str):
         raise ValueError(f"lif_encode_cuda: {msg}")
 
 
-def lif_encode_cuda(x, theta, scale, *, T: int = 15, math_dtype=F32):
+def lif_encode_cuda(x, theta, scale, *, T: int = 15, math_dtype=F32,
+                    decode_scale=None):
     """Launch the CUDA kernel on the current stream; same contract as
     ``lif_encode_plain``.  ``x`` f32 or bf16 [M, C] with M*C > 0;
-    ``theta``, ``scale`` f32 [C]; all contiguous on one CUDA device;
-    ``math_dtype`` f32 or bf16.  Raises on anything else and when the
-    launch is refused."""
+    ``theta``, ``scale`` and ``decode_scale`` (or None) f32 [C]; all
+    contiguous on one CUDA device; ``math_dtype`` f32 or bf16.  Raises
+    on anything else and when the launch is refused."""
     dev = x.device
+    params = [theta, scale] + ([] if decode_scale is None
+                               else [decode_scale])
     _require(math_dtype in (F32, BF16), f"math_dtype must be float32 or "
              f"bfloat16, got {math_dtype}")
     _require(dev.type == "cuda", f"x lies on {dev}, not a CUDA device")
-    _require(theta.device == dev and scale.device == dev,
+    _require(all(t.device == dev for t in params),
              "tensors lie on different devices")
     _require(x.dtype in (F32, BF16),
              f"x must be float32 or bfloat16, got {x.dtype}")
-    _require(theta.dtype == F32 and scale.dtype == F32,
-             f"theta and scale must be float32, got {theta.dtype}/"
-             f"{scale.dtype}")
+    _require(all(t.dtype == F32 for t in params),
+             f"theta, scale and decode_scale must be float32, got "
+             f"{[t.dtype for t in params]}")
     _require(x.ndim == 2 and x.numel() > 0, f"x must be a non-empty "
              f"[M, C], got {tuple(x.shape)}")
     M, C = x.shape
-    _require(tuple(theta.shape) == (C,) and tuple(scale.shape) == (C,),
-             f"theta and scale must be [{C}]")
-    _require(all(t.is_contiguous() for t in (x, theta, scale)),
+    _require(all(tuple(t.shape) == (C,) for t in params),
+             f"theta, scale and decode_scale must be [{C}]")
+    _require(all(t.is_contiguous() for t in [x] + params),
              "every input must be contiguous")
     _require(1 <= T <= 127, f"T={T} must fit the int8 count")
     out = torch.empty((M, C), dtype=torch.int8, device=dev)
+    dec = None if decode_scale is None else torch.empty_like(x)
     err = _library()(
-        x.data_ptr(), theta.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, C, int(T), int(x.dtype == BF16), int(math_dtype == BF16),
+        x.data_ptr(), theta.data_ptr(), scale.data_ptr(),
+        None if dec is None else decode_scale.data_ptr(), out.data_ptr(),
+        None if dec is None else dec.data_ptr(), M, C, int(T),
+        int(x.dtype == BF16), int(math_dtype == BF16),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lif_encode kernel launch failed: CUDA error "
                            f"{err}")
-    return out
+    return out if dec is None else (out, dec)

@@ -47,18 +47,28 @@ def paged_flash_decode(q, k_pool, v_pool, cl_page, cl_pos, qpos, *,
     return out
 
 
-def lif_encode(x, theta, scale, *, T: int = 15, math_dtype=torch.float32):
+def lif_encode(x, theta, scale, *, T: int = 15, math_dtype=torch.float32,
+               decode_scale=None):
     """T-tick on/off IF rate encoder: x [M, C] -> int8 counts [M, C],
     gated on ``|x/scale| >= theta/scale``; theta, scale [C], taken as
     float32 (as the TPU kernel casts them).  ``math_dtype`` float32 is
     the TPU kernel's arithmetic; bfloat16 rounds every op to bf16, as the
-    JAX codec computes on a bf16 activation."""
+    JAX codec computes on a bf16 activation.  With ``decode_scale`` [C]
+    (the decode's ``exp(log_scale) / T`` in x's dtype), returns
+    ``(counts, counts * decode_scale)``, the rate decode in x's dtype
+    from the same launch."""
     theta, scale = theta.float(), scale.float()
+    if decode_scale is not None:
+        decode_scale = decode_scale.float()
     if not _on_cuda("lif_encode", x):
         return LE.lif_encode_plain(x, theta, scale, T=T,
-                                   math_dtype=math_dtype)
-    out = LE.lif_encode_cuda(x.contiguous(), theta.contiguous(),
-                             scale.contiguous(), T=T, math_dtype=math_dtype)
+                                   math_dtype=math_dtype,
+                                   decode_scale=decode_scale)
+    out = LE.lif_encode_cuda(
+        x.contiguous(), theta.contiguous(), scale.contiguous(), T=T,
+        math_dtype=math_dtype,
+        decode_scale=None if decode_scale is None else
+        decode_scale.contiguous())
     lif_encode.launches += 1
     return out
 
@@ -84,6 +94,17 @@ def pack4(wire):
     if not _on_cuda("pack4", wire):
         return PK.pack4_plain(wire)
     out = PK.pack4_cuda(wire.contiguous())
+    pack4.launches += 1
+    return out
+
+
+def pack4_counts(counts, T: int):
+    """Signed spike counts [M, C] (float32 or bfloat16, C even) -> the
+    packed uint8 [M, C/2] of ``(counts + T).to(torch.uint8)``: the bias
+    and the pack in one launch, counted as a ``pack4`` launch."""
+    if not _on_cuda("pack4_counts", counts):
+        return PK.pack4_counts_plain(counts, T)
+    out = PK.pack4_counts_cuda(counts.contiguous(), T)
     pack4.launches += 1
     return out
 

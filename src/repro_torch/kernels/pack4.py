@@ -7,13 +7,19 @@ their oracles ``ref.pack4_ref`` / ``ref.unpack4_ref``.  Pack takes uint8
 ``[M, C]`` (C even) to ``[M, C/2]`` with ``out[k] = v[2k] | v[2k+1] <<
 4``; unpack is its inverse on values below 16.  For a spike count in
 {-7..7} biased by T=7 the wire halves again (``spike_pack4``).
+``pack4_counts`` is the pack with the wire's bias fused in: signed
+counts (float32 or bfloat16) to the packed bytes of
+``(counts + T).to(torch.uint8)``, what ``spike_pack4`` sends.
 
-Both CUDA kernels (``csrc/pack4.cu``) walk the flat bytes, one thread
-per output byte (pack) or input byte (unpack).  What bounds them on the
-card is memory: each byte read once and written once.
+The CUDA kernels (``csrc/pack4.cu``) walk the flat bytes: a thread of
+a pack makes one 16-byte load (16 wire bytes, 4 f32 or 8 bf16 counts)
+and writes half as many bytes as values, the unpack runs one thread per
+input byte.  What bounds them on the card is memory and, at decode
+rows, the launch: each byte read once and written once.
 
-``ops.pack4`` / ``ops.unpack4`` are the wrappers callers use: CPU
-tensors take the plain versions, CUDA tensors the kernels.
+``ops.pack4`` / ``ops.pack4_counts`` / ``ops.unpack4`` are the wrappers
+callers use: CPU tensors take the plain versions, CUDA tensors the
+kernels.
 """
 from __future__ import annotations
 
@@ -33,6 +39,12 @@ def pack4_plain(wire):
     return wire[..., 0::2] | (wire[..., 1::2] << 4)
 
 
+def pack4_counts_plain(counts, T: int):
+    """Signed counts [M, C] (C even) -> uint8 [M, C/2], the packed bytes
+    of ``(counts + T).to(torch.uint8)``."""
+    return pack4_plain((counts + T).to(U8))
+
+
 def unpack4_plain(packed):
     """uint8 [M, C2] -> uint8 [M, 2*C2]."""
     out = torch.stack([packed & 0xF, (packed >> 4) & 0xF], dim=-1)
@@ -42,8 +54,9 @@ def unpack4_plain(packed):
 def _library(name):
     fn = getattr(build.load("pack4"), name)
     if fn.argtypes is None:
-        P = ctypes.c_void_p
-        fn.argtypes = [P, P, ctypes.c_long, P]
+        P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+        fn.argtypes = ([P, P, L, I, I, P] if name == "pack4_counts_launch"
+                       else [P, P, L, P])
         fn.restype = ctypes.c_int
     return fn
 
@@ -53,17 +66,19 @@ def _require(fn_name, cond, msg):
         raise ValueError(f"{fn_name}: {msg}")
 
 
-def _check_input(fn_name, t):
+def _check_input(fn_name, t, dtypes=(U8,)):
     _require(fn_name, t.device.type == "cuda",
              f"input lies on {t.device}, not a CUDA device")
-    _require(fn_name, t.dtype == U8, f"input must be uint8, got {t.dtype}")
+    _require(fn_name, t.dtype in dtypes,
+             f"input must be {' or '.join(map(str, dtypes))}, got "
+             f"{t.dtype}")
     _require(fn_name, t.ndim == 2 and t.numel() > 0,
              f"input must be a non-empty [M, C], got {tuple(t.shape)}")
     _require(fn_name, t.is_contiguous(), "input must be contiguous")
 
 
-def _launch(name, src, out, n):
-    err = _library(name)(src.data_ptr(), out.data_ptr(), n,
+def _launch(name, src, out, n, *extra):
+    err = _library(name)(src.data_ptr(), out.data_ptr(), n, *extra,
                          torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
         kernel = name.replace("_launch", "")
@@ -82,6 +97,20 @@ def pack4_cuda(wire):
     _require("pack4_cuda", C % 2 == 0, f"last axis {C} is odd")
     out = torch.empty((M, C // 2), dtype=U8, device=wire.device)
     return _launch("pack4_launch", wire, out, out.numel())
+
+
+def pack4_counts_cuda(counts, T: int):
+    """Launch the fused pack kernel on the current stream; same contract
+    as ``pack4_counts_plain``.  Raises unless ``counts`` is a contiguous
+    non-empty float32 or bfloat16 [M, C] with C even on a CUDA device,
+    and when the launch is refused."""
+    _check_input("pack4_counts_cuda", counts, (torch.float32,
+                                               torch.bfloat16))
+    M, C = counts.shape
+    _require("pack4_counts_cuda", C % 2 == 0, f"last axis {C} is odd")
+    out = torch.empty((M, C // 2), dtype=U8, device=counts.device)
+    return _launch("pack4_counts_launch", counts, out, out.numel(), int(T),
+                   int(counts.dtype == torch.bfloat16))
 
 
 def unpack4_cuda(packed):

@@ -48,4 +48,5 @@ def test_library_name_follows_the_shared_header(name, tmp_path):
     with open(tmp_path / "common.cuh", "a") as f:
         f.write("// edited\n")
     assert (build.source_digest(copy) != before) == includes
-    assert includes == (name in ("count_matmul", "paged_decode"))
+    assert includes == (name in ("count_matmul", "lif_encode", "pack4",
+                                 "paged_decode"))

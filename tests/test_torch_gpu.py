@@ -12,6 +12,13 @@ no JAX, so it collects where only PyTorch is installed.
 * The ``lif_encode`` (float32 and bf16 compute types), ``pack4`` and
   ``unpack4`` kernels against their plain versions on every conformance
   case, exactly (integer outputs).
+* ``lif_encode`` with its decode epilogue (counts and decoded values)
+  and the fused ``pack4_counts`` against their plain versions, exactly,
+  on every conformance case and on the edges of the kernels' vector
+  layout (``LIF_TAIL_CASES``, ``PACK4_TAIL_CASES``, and buffers not
+  aligned for the vector accesses), where today's ``ops.lif_encode`` and
+  ``ops.pack4`` are held to their plain versions too; the codec's
+  ``encode_decode`` equals ``encode`` then ``decode`` on the card.
 * The ``count_matmul`` kernel against its plain version's float32 sum on
   its conformance sweep and on the edges of each of its designs
   (``COUNT_MATMUL_RAGGED_SHAPES``: every row count 1..17, ragged K and
@@ -41,11 +48,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     CASES, COUNT_MATMUL_RAGGED_SHAPES, COUNT_MATMUL_SHAPES, LIF_CASES,
-    PACK4_CASES, case_arrays, count_matmul_agrees, count_matmul_case,
-    lif_tensors, pack4_case, rand_case, to_tensors)
+    LIF_TAIL_CASES, PACK4_CASES, PACK4_TAIL_CASES, case_arrays,
+    count_matmul_agrees, count_matmul_case, lif_tensors, pack4_case,
+    pack4_counts_case, rand_case, to_tensors)
 from repro_torch.kernels.count_matmul import count_matmul_plain  # noqa: E402
 from repro_torch.kernels.lif_encode import lif_encode_plain  # noqa: E402
-from repro_torch.kernels.pack4 import pack4_plain, unpack4_plain  # noqa: E402
+from repro_torch.kernels.pack4 import (  # noqa: E402
+    pack4_counts_plain, pack4_plain, unpack4_plain)
 from repro_torch.kernels.paged_decode import paged_decode_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -319,3 +328,112 @@ def test_engine_on_card_bf16_spike_count_matmul_shadow():
         assert n["count_matmul"] == (5 * L * (steps + pre) if shadow else 0)
         assert eng.cache.allocator.pages_in_use == 0
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", LIF_CASES + LIF_TAIL_CASES)
+def test_lif_encode_decode_epilogue_matches_plain_on_card(name, x_dtype):
+    """Counts and decoded values of one launch, both compute types, equal
+    to the plain version's; one launch counted."""
+    _require_cuda()
+    x, theta, scale, T = lif_tensors(name, "cuda")
+    x = x.to(getattr(torch, x_dtype))
+    ds = (scale.to(x.dtype) / T).float()
+    for md in (torch.float32, torch.bfloat16):
+        before = ops.launch_counts()["lif_encode"]
+        counts, dec = ops.lif_encode(x, theta, scale, T=T, math_dtype=md,
+                                     decode_scale=ds)
+        assert ops.launch_counts()["lif_encode"] == before + 1
+        want_c, want_d = lif_encode_plain(x, theta, scale, T=T,
+                                          math_dtype=md, decode_scale=ds)
+        assert dec.dtype == x.dtype and dec.shape == x.shape
+        assert torch.equal(counts, want_c) and torch.equal(dec, want_d)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", LIF_TAIL_CASES)
+def test_lif_encode_tails_match_plain_on_card(name, x_dtype):
+    _require_cuda()
+    x, theta, scale, T = lif_tensors(name, "cuda")
+    x = x.to(getattr(torch, x_dtype))
+    for md in (torch.float32, torch.bfloat16):
+        got = ops.lif_encode(x, theta, scale, T=T, math_dtype=md)
+        assert torch.equal(got, lif_encode_plain(x, theta, scale, T=T,
+                                                 math_dtype=md))
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_boundary_kernels_on_unaligned_rows_on_card(x_dtype):
+    """Contiguous views that start 2 or 4 bytes into their buffers (a
+    width the vector layout takes when aligned): the scalar paths."""
+    _require_cuda()
+    dt = getattr(torch, x_dtype)
+    x, theta, scale, T = lif_tensors("tail_m257_c8", "cuda")
+    buf = torch.empty(x.numel() + 1, dtype=dt, device="cuda")
+    xv = buf[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0 and xv.is_contiguous()
+    ds = (scale.to(dt) / T).float()
+    got = ops.lif_encode(xv, theta, scale, T=T, math_dtype=dt,
+                         decode_scale=ds)
+    want = lif_encode_plain(xv, theta, scale, T=T, math_dtype=dt,
+                            decode_scale=ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    c = torch.tensor(pack4_counts_case("tail_m257_c10", 7), device="cuda")
+    cbuf = torch.empty(c.numel() + 1, dtype=dt, device="cuda")
+    cv = cbuf[1:].view(c.shape)
+    cv.copy_(c)
+    assert torch.equal(ops.pack4_counts(cv, 7), pack4_counts_plain(cv, 7))
+    w = torch.tensor(pack4_case("tail_m257_c10"), device="cuda")
+    wbuf = torch.empty(w.numel() + 1, dtype=torch.uint8, device="cuda")
+    wv = wbuf[1:].view(w.shape)
+    wv.copy_(w)
+    assert torch.equal(ops.pack4(wv), pack4_plain(wv))
+
+
+@pytest.mark.parametrize("name", PACK4_TAIL_CASES)
+def test_pack4_unpack4_tails_match_plain_on_card(name):
+    _require_cuda()
+    v = torch.tensor(pack4_case(name), device="cuda")
+    assert torch.equal(ops.pack4(v), pack4_plain(v))
+    assert torch.equal(ops.unpack4(v), unpack4_plain(v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PACK4_CASES + PACK4_TAIL_CASES)
+def test_pack4_counts_matches_plain_on_card(name, dtype):
+    """The bias fused into the pack, T = 7 and 15, against the plain
+    version; counted as a ``pack4`` launch."""
+    _require_cuda()
+    for T in (7, 15):
+        c = torch.tensor(pack4_counts_case(name, T), device="cuda").to(
+            getattr(torch, dtype))
+        before = ops.launch_counts()["pack4"]
+        got = ops.pack4_counts(c, T)
+        assert ops.launch_counts()["pack4"] == before + 1
+        assert torch.equal(got, pack4_counts_plain(c, T))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encode_decode_matches_encode_then_decode_on_card(dtype):
+    """The served wire roundtrip's one launch against the codec's encode
+    then decode on the same card, at the decode and a prefill shape."""
+    _require_cuda()
+    from repro_torch.core import spike as TS
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(13)
+    p = {"theta": torch.tensor(rng.uniform(0.0, 0.3, 1024)
+                               .astype(np.float32), device="cuda"),
+         "log_scale": torch.tensor(rng.uniform(-1.0, 1.0, 1024)
+                                   .astype(np.float32), device="cuda")}
+    cfg = TS.SpikeConfig(T=15, faithful=True)
+    for shape in ((4, 1, 1024), (1, 256, 1024)):
+        x = torch.tensor(rng.standard_normal(shape).astype(np.float32)
+                         * 1.5, device="cuda").to(dt)
+        before = ops.launch_counts()["lif_encode"]
+        counts, dec = TS.encode_decode(x, p, cfg)
+        assert ops.launch_counts()["lif_encode"] == before + 1
+        assert counts.dtype == torch.int8 and dec.dtype == dt
+        want = TS.encode(x, p, cfg)
+        assert torch.equal(counts.to(dt), want)
+        assert torch.equal(dec, TS.decode(want, p, cfg, dt))

@@ -210,3 +210,49 @@ def test_faithful_codec_refuses_bf16_and_other_devices():
     with pytest.raises(NotImplementedError):
         TS.encode(meta.clone().requires_grad_(), pm,
                   TS.SpikeConfig(faithful=True))
+
+
+def _same_exp(log_scale, dtype):
+    """``log_scale`` with 0 wherever torch's and XLA's ``exp`` differ in
+    ``dtype`` (float32 ``exp`` differs in the last place for some
+    arguments): the decode multiplies by that scale, so only equal
+    scales can give equal bits."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    te = torch.exp(torch.tensor(log_scale)).to(tdt).float().numpy()
+    je = np.asarray(jnp.exp(jnp.array(log_scale)).astype(jdt)
+                    .astype(jnp.float32))
+    return np.where(te == je, log_scale, np.float32(0.0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [15, 7])
+def test_decode_epilogue_and_encode_decode_match_jax(T, dtype):
+    """The faithful codec's encode then decode in the activation's dtype,
+    JAX against the port: ``spike.encode_decode`` (counts and decoded
+    values) and the kernel's plain version with the decode epilogue
+    (``decode_scale = exp(log_scale) / T`` in that dtype), bit for
+    bit."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    rng = np.random.RandomState(30 + T)
+    x = (rng.standard_normal((3, 4, 40)) * 1.5).astype(np.float32)
+    p = _codec_params(40, 40 + T)
+    p["log_scale"] = _same_exp(p["log_scale"], dtype)
+    jp = {k: jnp.array(v) for k, v in p.items()}
+    tp = {k: torch.tensor(v) for k, v in p.items()}
+    cfg_j = JS.SpikeConfig(T=T, faithful=True)
+    jc = JS.encode(jnp.array(x, jdt), jp, cfg_j)
+    jd = np.asarray(JS.decode(jc, jp, cfg_j, jdt).astype(jnp.float32))
+    jc = np.asarray(jc.astype(jnp.float32))
+    assert (jc != 0).any() and (jc == 0).any()
+    tx = torch.tensor(x).to(tdt)
+    counts, dec = TS.encode_decode(tx, tp, TS.SpikeConfig(T=T,
+                                                          faithful=True))
+    assert dec.dtype == tdt and dec.shape == x.shape
+    np.testing.assert_array_equal(counts.float().numpy(), jc)
+    np.testing.assert_array_equal(dec.float().numpy(), jd)
+    scale = torch.exp(tp["log_scale"]).to(tdt)
+    c8, d8 = ops.lif_encode(tx.reshape(-1, 40), tp["theta"].to(tdt), scale,
+                            T=T, math_dtype=tdt, decode_scale=scale / T)
+    assert c8.dtype == torch.int8 and d8.dtype == tdt
+    np.testing.assert_array_equal(c8.numpy(), jc.reshape(-1, 40))
+    np.testing.assert_array_equal(d8.float().numpy(), jd.reshape(-1, 40))

@@ -5,9 +5,10 @@ value, and random 4-bit wires of ragged row counts) through
 ``pack4_plain`` / ``unpack4_plain`` (via ``ops.pack4`` / ``ops.unpack4``
 on CPU tensors) and the JAX oracles ``ref.pack4_ref`` /
 ``ref.unpack4_ref``, the JAX wrappers ``ops.pack4`` / ``ops.unpack4``
-(interpreted Pallas on the CPU) and ``spike.pack4`` / ``unpack4``: all
-exactly equal, and unpack inverts pack on 4-bit values.  The biased
-uint8 wire helpers equal JAX's on every count in {-15..15}.  An odd
+(interpreted Pallas on the CPU) and ``spike.unpack4``: all exactly
+equal, and unpack inverts pack on 4-bit values.  The codec's
+``pack4_counts`` (bias and pack in one call) and ``wire_u8_to_counts``
+equal JAX's wire helpers on every count in {-15..15}.  An odd
 last axis raises, as the TPU kernel's assertion does.  The CUDA kernels
 need the card: ``tests/test_torch_gpu.py`` holds them against these
 plain versions there.
@@ -60,19 +61,17 @@ def test_spike_pack4_on_leading_dims_and_wire_helpers():
     counts = rng.randint(-7, 8, (3, 2, 10)).astype(np.float32)
     for T in (7, 15):
         c = (counts * T / 7).round().astype(np.float32)
-        w = TS.counts_to_wire_u8(torch.tensor(c), T)
-        np.testing.assert_array_equal(
-            w.numpy(), np.asarray(JS.counts_to_wire_u8(jnp.array(c), T)))
-        back = TS.wire_u8_to_counts(w, T)
+        w = np.asarray(JS.counts_to_wire_u8(jnp.array(c), T))
+        back = TS.wire_u8_to_counts(torch.tensor(w), T)
         np.testing.assert_array_equal(back.numpy(), np.asarray(
-            JS.wire_u8_to_counts(jnp.array(w.numpy()), T)))
+            JS.wire_u8_to_counts(jnp.array(w), T)))
         np.testing.assert_array_equal(back.numpy(), c)
-    w = TS.counts_to_wire_u8(torch.tensor(counts), 7)
-    packed = TS.pack4(w)
+    w = np.asarray(JS.counts_to_wire_u8(jnp.array(counts), 7))
+    packed = TS.pack4_counts(torch.tensor(counts), 7)
     assert packed.shape == (3, 2, 5)
     np.testing.assert_array_equal(packed.numpy(),
-                                  np.asarray(JS.pack4(jnp.array(w.numpy()))))
-    np.testing.assert_array_equal(TS.unpack4(packed).numpy(), w.numpy())
+                                  np.asarray(JS.pack4(jnp.array(w))))
+    np.testing.assert_array_equal(TS.unpack4(packed).numpy(), w)
 
 
 def test_odd_last_axis_and_other_devices_raise():
@@ -82,3 +81,25 @@ def test_odd_last_axis_and_other_devices_raise():
     for fn in (ops.pack4, ops.unpack4):
         with pytest.raises(ValueError):
             fn(meta)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PACK4_CASES)
+def test_pack4_counts_matches_jax(name, dtype):
+    """The bias and the pack in one call: signed counts (float32 or
+    bf16) at T = 7 and 15 against JAX's ``pack4(counts_to_wire_u8(...))``,
+    exactly (at T = 15 the biased values pass 15, and the uint8
+    semantics of the pack decide the bytes); the codec's ``pack4_counts``
+    on leading dims likewise."""
+    from repro_torch.kernels.cases import pack4_counts_case
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    for T in (7, 15):
+        c = pack4_counts_case(name, T)
+        want = np.asarray(JS.pack4(JS.counts_to_wire_u8(jnp.array(c, jdt),
+                                                        T)))
+        got = ops.pack4_counts(torch.tensor(c).to(tdt), T)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), want)
+        lead = TS.pack4_counts(torch.tensor(c).to(tdt).reshape(
+            1, c.shape[0], c.shape[1]), T)
+        np.testing.assert_array_equal(lead[0].numpy(), want)
