@@ -16,10 +16,13 @@ on failure:
    wire within one int8 step); ``lif_encode`` (in both of its compute
    types, float32 and bfloat16, with and without its decode epilogue),
    ``pack4``, ``pack4_counts`` (the wire's bias fused into the pack, f32
-   and bf16 counts) and ``unpack4`` on their conformance cases (every
-   byte value among them), on the edges of their vector layouts
-   (``LIF_TAIL_CASES``, ``PACK4_TAIL_CASES``) and at the serve shapes
-   [4, 1024], [120, 1024] and [256, 1024], every output exactly;
+   and bf16 counts), ``unpack4`` and ``unpack4_decode`` (the wire's
+   unbias and rate decode fused into the unpack, f32 and bf16 results)
+   on their conformance cases (every byte value among them), on the
+   edges of their vector layouts (``LIF_TAIL_CASES``,
+   ``PACK4_TAIL_CASES``, and buffers not aligned for the vector
+   accesses) and at the serve shapes [4, 1024], [120, 1024] and [256,
+   1024], every output exactly;
    ``count_matmul`` on its conformance sweep (M in {1, 4, 33, 256}, K in
    {128, 300, 1024}, N in {200, 1024, 2816}, and the edges of each of its
    designs: every M in 1..17 at ragged K and N, prefill rows at ragged K
@@ -35,8 +38,8 @@ on failure:
    coded-boundary codec — ``spike_fused`` (the main path of the first
    slice), then ``spike`` (the T-tick IF encoder, ``lif_encode`` at
    every coded boundary, the wire roundtrips' decode in its epilogue),
-   ``spike_pack4`` (``pack4_counts`` before and ``unpack4`` after every
-   coded exchange) and ``sparse_topk``.  For
+   ``spike_pack4`` (``pack4_counts`` before and ``unpack4_decode`` after
+   every coded exchange) and ``sparse_topk``.  For
    each codec the kernel walk's run is timed with every launch count set
    to 0 just before it and read just after: paged decode must launch 24
    times per decode step, ``lif_encode`` 4 x 24 times per decode step
@@ -44,8 +47,8 @@ on failure:
    per decode step + 4 per prefill) under ``spike_pack4``, and every
    page must be free at the end.  In the checked run every wire
    roundtrip under ``spike`` must be a ``lif_encode`` launch with the
-   epilogue, and every pack under ``spike_pack4`` a ``pack4_counts``
-   launch.  The reference walk (same boundary
+   epilogue, and every pack and unpack under ``spike_pack4`` a
+   ``pack4_counts`` and an ``unpack4_decode`` launch.  The reference walk (same boundary
    kernel counts, no paged decode) and a second kernel-walk run (every
    launch of every kernel checked against its plain version on its live
    inputs) are traced at every coded wire: their greedy streams must
@@ -66,7 +69,8 @@ on failure:
    its plain version and its bound at the shapes the serve path gives
    it (``lif_encode`` in both compute types at the decode and the
    prefill rows, with and without the epilogue; ``pack4`` from both
-   entry points; paged decode also against PyTorch's
+   entry points; ``unpack4`` from both, ``unpack4_decode`` in f32 and
+   bf16 beside the four launches it replaces; paged decode also against PyTorch's
    ``scaled_dot_product_attention`` on the gathered K/V of the same live
    tokens, ``count_matmul`` — at [4, 1024] and [256, 1024] times both
    weight shapes it meets, [1024, 2816] (w1, w3) and [1024, 1024] (wq,
@@ -83,12 +87,15 @@ prints no result.  It imports nothing of JAX.
 
 ``python3 chip_smoke.py --kernels-per-step SRC`` builds the kernels of
 the package under ``SRC`` (the ``src`` directory of a checkout, another
-commit's too) and prints only its kernels per decode step, so that two
-commits are counted in one call.
+commit's too) and prints only its kernels per decode step and a digest
+of the streams it serves under the codecs it counts (``streams_sha256``,
+as the full run prints them), so that two commits are compared in one
+call.
 """
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import subprocess
 import sys
@@ -206,6 +213,22 @@ def compare_kernel(arrays, window, cap, pool_dtype):
     return max(err, float((dec - pdec).abs().max()))
 
 
+def smoke_requests(vocab):
+    """The served workload: eight requests of 16-120 seeded prompt
+    tokens, 32 new tokens each.  Returns (prompt lengths, requests)."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(16, 121, 8)
+    return lens, [(rng.randint(0, vocab, int(L)).tolist(), 32)
+                  for L in lens]
+
+
+def streams_digest(streams):
+    """16 hex digits of a hash over a run's greedy streams (rid ->
+    tokens), to compare two commits' served tokens."""
+    return hashlib.sha256(json.dumps(sorted(streams.items())).encode()
+                          ).hexdigest()[:16]
+
+
 def serve_case(cfg, slot_lens, seed=7):
     """Kernel inputs at the serve shape: a pool of 64 pages of one layer,
     four slots whose lists an allocator built for ``slot_lens`` tokens,
@@ -303,6 +326,12 @@ def boundary_bound(entry, args, kw):
         # counts in, bytes out; an add and a conversion a count, a shift
         # and an or a byte out
         nbytes, flops = n * x.element_size() + n // 2, 3 * n
+    elif entry == "unpack4_decode":
+        # bytes and the decode factors in, values out; per value a
+        # nibble's shift and mask, the subtract and the multiply
+        out_size = args[2].element_size()
+        nbytes = n + 2 * n * out_size + args[2].numel() * out_size
+        flops = 4 * 2 * n
     else:
         nbytes, flops = 3 * n, 3 * n           # and, shift, and a byte in
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -339,7 +368,8 @@ class _Patch:
 def _boundary_fns():
     """Entry point -> (kernel it launches, module, CUDA launch attribute,
     plain version).  ``pack4_counts`` (the bias fused into the pack) is a
-    launch of the ``pack4`` kernel."""
+    launch of the ``pack4`` kernel, ``unpack4_decode`` (the unbias and
+    the decode fused into the unpack) one of ``unpack4``."""
     from repro_torch.kernels import lif_encode as LE
     from repro_torch.kernels import pack4 as PK
     return {"lif_encode": ("lif_encode", LE, "lif_encode_cuda",
@@ -347,7 +377,9 @@ def _boundary_fns():
             "pack4": ("pack4", PK, "pack4_cuda", PK.pack4_plain),
             "pack4_counts": ("pack4", PK, "pack4_counts_cuda",
                              PK.pack4_counts_plain),
-            "unpack4": ("unpack4", PK, "unpack4_cuda", PK.unpack4_plain)}
+            "unpack4": ("unpack4", PK, "unpack4_cuda", PK.unpack4_plain),
+            "unpack4_decode": ("unpack4", PK, "unpack4_decode_cuda",
+                               PK.unpack4_decode_plain)}
 
 
 def _outputs(out):
@@ -383,13 +415,16 @@ def check_boundary_kernels():
     """Every conformance case of ``lif_encode`` (in both compute types,
     with and without the decode epilogue; the vector layout's edges also
     on bf16 activations), ``pack4``, ``pack4_counts`` (f32 and bf16
-    counts, T = 7 and 15) and ``unpack4``, and random inputs at the
-    serve shapes, kernel == plain on the card.  Returns ({kernel: largest
-    abs difference}, {entry point: launches checked})."""
+    counts, T = 7 and 15), ``unpack4`` and ``unpack4_decode`` (f32 and
+    bf16 results, T = 7 and 1, log-scales of 0 and seeded ones, and
+    unaligned views), and random inputs at the serve shapes, kernel ==
+    plain on the card.  Returns ({kernel: largest abs difference},
+    {entry point: launches checked})."""
     from repro_torch.kernels.cases import (LIF_CASES, LIF_TAIL_CASES,
                                            PACK4_CASES, PACK4_TAIL_CASES,
-                                           lif_tensors, pack4_case,
-                                           pack4_counts_case)
+                                           UNPACK4_LOG_SCALES, lif_tensors,
+                                           pack4_case, pack4_counts_case,
+                                           unpack4_log_scale)
     err = dict.fromkeys(BOUNDARY_KERNELS, 0.0)
     n = collections.Counter()
     bf = torch.bfloat16
@@ -412,14 +447,38 @@ def check_boundary_kernels():
         check_lif(x, theta, scale, T)
         if name in LIF_TAIL_CASES:
             check_lif(x.to(bf), theta, scale, T)
+    def check_unpack4_decode(packed, log_scale, Ts=(7, 1)):
+        # the decode factor as the codec computes it, in each dtype
+        for dt in (torch.float32, bf):
+            scale = torch.exp(log_scale).to(dt)
+            for T in Ts:
+                check("unpack4_decode", packed, T, scale / T)
+
     for name in PACK4_CASES + PACK4_TAIL_CASES:
         v = torch.tensor(pack4_case(name), device="cuda")
         check("pack4", v)
         check("unpack4", v)
+        for kind in UNPACK4_LOG_SCALES:
+            check_unpack4_decode(v, torch.tensor(
+                unpack4_log_scale(kind, 2 * v.shape[1]), device="cuda"))
         for T in (7, 15):
             c = torch.tensor(pack4_counts_case(name, T), device="cuda")
             for dt in (torch.float32, bf):
                 check("pack4_counts", c.to(dt), T)
+    # packed bytes 1 byte and decode factors 1 element into their
+    # buffers: the scalar paths of a width the vector layout takes
+    v = torch.tensor(pack4_case("tail_m257_c8"), device="cuda")
+    buf = torch.empty(v.numel() + 1, dtype=torch.uint8, device="cuda")
+    view = buf[1:].view(v.shape)
+    view.copy_(v)
+    check("unpack4", view)
+    for dt in (torch.float32, bf):
+        ds = torch.exp(torch.tensor(unpack4_log_scale("seeded", 16),
+                                    device="cuda")).to(dt) / 7
+        dbuf = torch.empty(17, dtype=dt, device="cuda")
+        dbuf[1:].copy_(ds)
+        for packed, d in ((view, ds), (v, dbuf[1:]), (view, dbuf[1:])):
+            check("unpack4_decode", packed, 7, d)
     rng = np.random.RandomState(11)
     for M in (4, 120, 256):
         C = 1024
@@ -434,8 +493,10 @@ def check_boundary_kernels():
             check_lif(x.to(bf), theta.to(bf).float(), scale.to(bf).float(),
                       T)
         check("pack4", t(rng.randint(0, 15, (M, C)).astype(np.uint8)))
-        check("unpack4", t(rng.randint(0, 256, (M, C // 2))
-                           .astype(np.uint8)))
+        packed = t(rng.randint(0, 256, (M, C // 2)).astype(np.uint8))
+        check("unpack4", packed)
+        check_unpack4_decode(packed, t(rng.uniform(-1.0, 1.0, C)
+                                       .astype(np.float32)), Ts=(7,))
         counts = t(rng.randint(-7, 8, (M, C)).astype(np.float32))
         for dt in (torch.float32, bf):
             check("pack4_counts", counts.to(dt), 7)
@@ -455,15 +516,21 @@ def time_boundary_kernels(runs, errs, flush):
     print(json.dumps({"launch_floor_ms": floor_ms}), flush=True)
     timed = {name: [] for name in BOUNDARY_KERNELS}
 
-    def time_entry(entry, args, kw, **tags):
+    def time_entry(entry, args, kw, yardstick=None, **tags):
+        """Time one entry point; ``yardstick``, a call that computes the
+        same function in several launches, is timed beside it."""
         k_ms, p_ms, b_ms, b_by = time_boundary(entry, args, kw, flush)
         row = {"shape": list(args[0].shape), "entry": entry, **tags,
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                "bound_by": b_by, "over_floor_ms": k_ms - floor_ms}
+        more = ""
+        if yardstick is not None:
+            row["unfused_ms"] = cuda_ms(yardstick, flush)
+            more = f", unfused {row['unfused_ms']:.5f} ms"
         timed[_boundary_fns()[entry][0]].append(row)
         print(f"{entry} at {row['shape']} {tags}: kernel {k_ms:.5f} ms "
               f"({k_ms - floor_ms:+.5f} over the floor), plain {p_ms:.5f} "
-              f"ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+              f"ms, bound {b_ms:.6f} ms ({b_by}){more}", flush=True)
 
     def live(chk, entry, n_shapes, epilogue=False):
         """The live samples of one entry point, decode rows first."""
@@ -499,14 +566,26 @@ def time_boundary_kernels(runs, errs, flush):
         wire = (args[0] + args[1]).to(torch.uint8)
         time_entry("pack4", [wire], {})
         time_entry("pack4_counts", args, kw)
-    for args, kw in live(chk, "unpack4", 2):
-        time_entry("unpack4", args, kw)
+    # the unpacks: the uint8 entry on the live packed bytes, and the
+    # fused decode in f32 (the live call) and in bf16 (the live factor
+    # rounded to bf16), each beside the four launches it replaces (the
+    # uint8 unpack, the cast, the unbias and the multiply)
+    from repro_torch.kernels import pack4 as PK
+    for (packed, T, ds), kw in live(chk, "unpack4_decode", 2):
+        time_entry("unpack4", [packed], {})
+        for dt in (torch.float32, torch.bfloat16):
+            d = ds.to(dt)
+            time_entry("unpack4_decode", [packed, T, d], kw,
+                       yardstick=lambda p=packed, T=T, d=d: (
+                           PK.unpack4_cuda(p).to(d.dtype) - T) * d,
+                       dtype=str(dt)[6:])
     home = {"lif_encode": "spike", "pack4": "spike_pack4",
             "unpack4": "spike_pack4"}
     # the headline numbers are those of the served call at the decode
-    # rows: the served path packs only through ``pack4_counts``
+    # rows: the served path packs only through ``pack4_counts`` and
+    # unpacks only through ``unpack4_decode`` (f32 here)
     served = {"lif_encode": "lif_encode", "pack4": "pack4_counts",
-              "unpack4": "unpack4"}
+              "unpack4": "unpack4_decode"}
     out = []
     for name in BOUNDARY_KERNELS:
         first = next(r for r in timed[name] if r["entry"] == served[name])
@@ -879,8 +958,9 @@ def expected_launches(codec, walk, eng, shadow=False):
     layer's 4 coded boundaries per decode step (2 wire roundtrips, 2
     coded psums) and per prefill (2 coded gathers, 2 coded reduce-
     scatters) under ``spike``; ``pack4`` and ``unpack4`` once per coded
-    exchange under ``spike_pack4``: 2 per layer and decode step (the
-    coded psums; a wire roundtrip exchanges nothing) and 4 per prefill;
+    exchange under ``spike_pack4`` (``unpack4`` as ``unpack4_decode``):
+    2 per layer and decode step (the coded psums; a wire roundtrip
+    exchanges nothing) and 4 per prefill;
     ``count_matmul`` only with the shadow on: once per consuming weight
     (5 per layer) per decode step and per prefill."""
     steps, pre = eng.decode_steps, eng.prefills
@@ -903,7 +983,8 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
     ``shadow``, the count matmul shadow on, its counts set to 0 just
     before and read just after).  Returns (launch counts of the timed
     run, the ``LaunchCheck``, tokens/s, median decode step ms, launch
-    counts of the checked run)."""
+    counts of the checked run, ``streams_digest`` of the served
+    streams)."""
     from repro_torch.kernels import ops
     cfg_c = cfg.replace(codec=codec)
     bf16 = cfg.dtype == torch.bfloat16
@@ -922,10 +1003,11 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
             raise AssertionError(f"{label} request {rid}: bad stream {toks}")
     n_tok = sum(len(v) for v in fused.values())
     tok_s, step_ms = n_tok / secs, 1e3 * float(np.median(steps))
+    digest = streams_digest(fused)
     print(f"serve {label} fused: {n_tok} tokens in {secs:.3f} s = "
           f"{tok_s:.1f} tok/s, {eng.decode_steps} decode steps, "
           f"{eng.prefills} prefills, median decode step {step_ms:.3f} ms, "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, streams sha256 {digest}", flush=True)
 
     ops.reset_launch_counts()
     tr_r = WireTrace(4)
@@ -950,14 +1032,17 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
         raise AssertionError(f"{label}: checked run launches {checked}, "
                              f"checked {check.launches}, expected {want_t}")
     # the served roundtrips took the decode epilogue, the served packs
-    # the fused bias: every wire roundtrip is a launch with the epilogue,
-    # every pack a ``pack4_counts``
+    # the fused bias, the served unpacks the fused unbias and decode:
+    # every wire roundtrip is a launch with the epilogue, every pack a
+    # ``pack4_counts``, every unpack an ``unpack4_decode``
     fused_want = {"epilogues": (2 * N_LAYERS * eng_t.decode_steps
                                 if codec == "spike" else 0),
-                  "pack4_counts": want_t["pack4"], "pack4": 0}
+                  "pack4_counts": want_t["pack4"], "pack4": 0,
+                  "unpack4_decode": want_t["unpack4"], "unpack4": 0}
     fused_got = {"epilogues": check.epilogues,
-                 "pack4_counts": check.entries["pack4_counts"],
-                 "pack4": check.entries["pack4"]}
+                 **{e: check.entries[e] for e in (
+                     "pack4_counts", "pack4", "unpack4_decode",
+                     "unpack4")}}
     if fused_got != fused_want:
         raise AssertionError(f"{label}: fused variants {fused_got}, "
                              f"expected {fused_want}")
@@ -979,13 +1064,15 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
           f"one step from the plain version's, every boundary-kernel launch "
           f"exact, {check.epilogues} lif_encode launches with the decode "
           f"epilogue, {check.entries['pack4_counts']} pack4 launches with "
-          f"the bias fused{shadowed}); fused == reference on {compared} of "
+          f"the bias fused, {check.entries['unpack4_decode']} unpack4 "
+          f"launches with the unbias and decode fused{shadowed}); fused == "
+          f"reference on {compared} of "
           f"{n_tok} "
           f"tokens: {by_split} requests compared up to the first coded value "
           f"that rounded the other way [{first}], {by_margin} up to a margin "
           f"<= {MARGIN}",
           flush=True)
-    return launches, check, tok_s, step_ms, checked
+    return launches, check, tok_s, step_ms, checked, digest
 
 
 def kernels_per_step(cfg, params, codec):
@@ -1037,13 +1124,17 @@ def full_width_f32():
     return cfg, init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
 
 
+#: the codecs whose kernels per decode step are counted: those whose
+#: boundaries run the boundary kernels, ``spike_fused`` as the control
+STEP_CODECS = ("spike_fused", "spike", "spike_pack4")
+
+
 def count_step_kernels(label, cfg, params):
-    """Print the CUDA kernels of one decode step under the codecs whose
-    boundaries run the boundary kernels (``spike_fused`` as the
-    control), for the package on ``sys.path``.  Raises when the profiler
-    records no device activity, so that the phase measures or fails."""
+    """Print the CUDA kernels of one decode step under ``STEP_CODECS``,
+    for the package on ``sys.path``.  Raises when the profiler records
+    no device activity, so that the phase measures or fails."""
     counts = {}
-    for codec in ("spike_fused", "spike", "spike_pack4"):
+    for codec in STEP_CODECS:
         got = kernels_per_step(cfg, params, codec)
         if got is None:
             raise AssertionError(f"kernels per decode step {label} {codec}: "
@@ -1078,7 +1169,13 @@ def main(argv) -> int:
         # checkout's, to compare two commits in one call)
         from repro_torch.kernels import build
         build.build()
-        count_step_kernels(str(argv[1]), *full_width_f32())
+        cfg, params = full_width_f32()
+        count_step_kernels(str(argv[1]), cfg, params)
+        requests = smoke_requests(cfg.vocab)[1]
+        print(json.dumps({"streams_sha256": {str(argv[1]): {
+            codec: streams_digest(serve(cfg.replace(codec=codec), params,
+                                        requests, "fused")[0])
+            for codec in STEP_CODECS}}}), flush=True)
         return 0
 
     from repro_torch.configs import get_config
@@ -1105,10 +1202,7 @@ def main(argv) -> int:
             N_LAYERS, 1024, 16, 64, 2816, 151936, "hnn", "spike_fused"):
         raise AssertionError(f"unexpected serving config {cfg}")
 
-    rng = np.random.RandomState(0)
-    lens = rng.randint(16, 121, 8)
-    requests = [(rng.randint(0, cfg.vocab, int(L)).tolist(), 32)
-                for L in lens]
+    lens, requests = smoke_requests(cfg.vocab)
 
     max_err = 0.0
     for name in sorted(CASES):
@@ -1180,7 +1274,8 @@ def main(argv) -> int:
     serve(cfg16, params16, [(p, 4) for p, _ in requests[:2]], "fused")
     runs["spike/bf16"] = serve_codec(cfg16, params16, requests, "spike",
                                      shadow=True)
-    print(json.dumps({"serve": {codec: {"tok_s": r[2], "median_step_ms": r[3]}
+    print(json.dumps({"serve": {codec: {"tok_s": r[2], "median_step_ms": r[3],
+                                        "streams_sha256": r[5]}
                                 for codec, r in runs.items()}}), flush=True)
 
     ms, plain_ms, lib_ms, bound_ms, bound_by = time_kernel(s_case, cfg)

@@ -13,7 +13,7 @@ IF encoder, through the ``lif_encode`` kernel when serving; a wire
 roundtrip takes its decode from the same launch), ``spike_fused`` (the
 closed form), ``spike_pack4`` (closed form at T=7, two counts per byte
 through the ``pack4``/``unpack4`` kernels, the bias fused into the
-pack) and
+pack, the unbias and the decode into the unpack) and
 ``sparse_topk`` (the top fraction of counts per token as (index, count)
 pairs on the gather; dense counts elsewhere, as in the reference).  A
 world size above 1 raises ``NotImplementedError``.  Gradients use the
@@ -105,11 +105,8 @@ def _decode_local(wire, params, codec: BoundaryCodec, scale_i8, dtype):
     if codec.mode == "int8":
         return (wire.to(torch.float32) * scale_i8).to(dtype)
     if codec.mode == "spike_pack4":
-        counts = spike.wire_u8_to_counts(spike.unpack4(wire), codec.cfg.T,
-                                         dtype)
-    else:
-        counts = wire.to(dtype)
-    return spike.decode(counts, params, codec.cfg, dtype)
+        return spike.unpack4_decode(wire, params, codec.cfg, dtype)
+    return spike.decode(wire.to(dtype), params, codec.cfg, dtype)
 
 
 def _local_roundtrip(x, params, codec: BoundaryCodec, consumers=()):

@@ -15,8 +15,10 @@ run:
   biased by T and packed, as the reference's
   ``pack4(counts_to_wire_u8(counts, T))``), ``unpack4`` and
   ``wire_u8_to_counts``,
-* ``encode`` / ``decode`` over one boundary's learnable params, and
-  ``encode_decode``, both in one ``lif_encode`` launch where it can.
+* ``encode`` / ``decode`` over one boundary's learnable params,
+  ``encode_decode``, both in one ``lif_encode`` launch where it can, and
+  ``unpack4_decode``, the packed wire's unpack, unbias and decode in one
+  ``unpack4`` launch where it can.
 
 Rounding is ``torch.round`` (half to even), exactly as ``jnp.round``,
 so the counts on the wire equal the reference's bit for bit.  The IF
@@ -28,7 +30,8 @@ kernel through ``kernels.ops``, ``pack4_counts`` biases and packs the
 counts in one launch of the ``pack4`` kernel, and ``unpack4`` runs its
 own; on CPU tensors each runs its kernel's plain version.  A served wire
 roundtrip (``encode_decode``) takes the decode from the ``lif_encode``
-launch's epilogue.
+launch's epilogue, and a served packed exchange (``unpack4_decode``)
+its unbias and decode from the ``unpack4`` launch.
 """
 from __future__ import annotations
 
@@ -206,6 +209,29 @@ def encode(x, params: dict, cfg: SpikeConfig):
 def decode(counts, params: dict, cfg: SpikeConfig, dtype=torch.bfloat16):
     scale = torch.exp(params["log_scale"]).to(dtype)
     return rate_decode_signed(counts, scale, cfg.T).to(dtype)
+
+
+def unpack4_decode(packed, params: dict, cfg: SpikeConfig,
+                   dtype=torch.bfloat16):
+    """The receiving side of a packed wire: ``decode(wire_u8_to_counts(
+    unpack4(packed), cfg.T, dtype), params, cfg, dtype)``, bit for bit,
+    packed uint8 [..., C/2] -> [..., C] in ``dtype``.
+
+    On a CUDA tensor with no gradient wanted on ``log_scale`` and a
+    float32 or bfloat16 ``dtype``, one ``unpack4`` launch
+    (``ops.unpack4_decode``) gives it, with ``scale / T`` computed here
+    as ``decode`` computes it; otherwise (CPU tensors, a gradient) it
+    runs the unpack, ``wire_u8_to_counts`` and ``decode``."""
+    if (dtype in (torch.float32, torch.bfloat16)
+            and not needs_grad(params["log_scale"])
+            and kops._on_cuda("unpack4_decode", packed)):
+        scale = torch.exp(params["log_scale"]).to(dtype)
+        C2 = packed.shape[-1]
+        out = kops.unpack4_decode(packed.reshape(-1, C2), cfg.T,
+                                  scale / cfg.T)
+        return out.reshape(*packed.shape[:-1], 2 * C2)
+    return decode(wire_u8_to_counts(unpack4(packed), cfg.T, dtype), params,
+                  cfg, dtype)
 
 
 def encode_decode(x, params: dict, cfg: SpikeConfig):

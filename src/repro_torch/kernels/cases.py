@@ -15,7 +15,8 @@ from a numpy ``RandomState`` or built exactly:
   thresholds;
 * ``pack4`` / ``unpack4``: every byte value, and random 4-bit wires of
   ragged row counts; ``pack4_counts``: signed counts in {-T..T} of the
-  same shapes;
+  same shapes; ``unpack4_decode``: the same bytes with log-scales of 0
+  and seeded ones (``UNPACK4_LOG_SCALES``);
 * the edges of the boundary kernels' vector layouts
   (``LIF_TAIL_CASES``, ``PACK4_TAIL_CASES``): channel counts that are
   no multiple of the vector width (odd ones among them), ragged ends,
@@ -208,6 +209,22 @@ def pack4_counts_case(name, T):
     shape = pack4_case(name).shape
     rng = np.random.RandomState(shape[0] * 131 + shape[1] + T)
     return rng.randint(-T, T + 1, shape).astype(np.float32)
+
+
+#: the log-scales a packed wire's decode is checked at: 0 (the seeded
+#: init's, a decode factor of exactly 1/T) and random ones
+UNPACK4_LOG_SCALES = ("zero", "seeded")
+
+
+def unpack4_log_scale(kind, C):
+    """float32 ``log_scale`` [C] of an ``UNPACK4_LOG_SCALES`` kind: zeros,
+    or uniform in [-1, 1] seeded by C."""
+    if kind == "zero":
+        return np.zeros(C, np.float32)
+    if kind == "seeded":
+        return np.random.RandomState(C + 17).uniform(-1.0, 1.0, C).astype(
+            np.float32)
+    raise KeyError(kind)
 
 
 # ---------------------------------------------------------------------------

@@ -118,6 +118,20 @@ def unpack4(packed):
     return out
 
 
+def unpack4_decode(packed, T: int, decode_scale):
+    """uint8 [M, C2] -> ``(unpack4(packed).to(dtype) - T) *
+    decode_scale`` [M, 2*C2] in ``decode_scale``'s dtype (float32 or
+    bfloat16; [2*C2], the decode's ``exp(log_scale) / T``): the unpack,
+    the wire's unbias and the rate decode in one launch, counted as an
+    ``unpack4`` launch."""
+    if not _on_cuda("unpack4_decode", packed):
+        return PK.unpack4_decode_plain(packed, T, decode_scale)
+    out = PK.unpack4_decode_cuda(packed.contiguous(), T,
+                                 decode_scale.contiguous())
+    unpack4.launches += 1
+    return out
+
+
 _WRAPPERS = {"paged_decode": paged_flash_decode, "lif_encode": lif_encode,
              "count_matmul": count_matmul, "pack4": pack4,
              "unpack4": unpack4}

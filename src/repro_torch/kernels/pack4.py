@@ -10,16 +10,21 @@ their oracles ``ref.pack4_ref`` / ``ref.unpack4_ref``.  Pack takes uint8
 ``pack4_counts`` is the pack with the wire's bias fused in: signed
 counts (float32 or bfloat16) to the packed bytes of
 ``(counts + T).to(torch.uint8)``, what ``spike_pack4`` sends.
+``unpack4_decode`` is the unpack with the wire's unbias and the rate
+decode fused in: packed bytes to ``(unpack4(p).to(dtype) - T) *
+decode_scale`` in float32 or bfloat16, what ``spike_pack4`` receives.
 
 The CUDA kernels (``csrc/pack4.cu``) walk the flat bytes: a thread of
 a pack makes one 16-byte load (16 wire bytes, 4 f32 or 8 bf16 counts)
-and writes half as many bytes as values, the unpack runs one thread per
-input byte.  What bounds them on the card is memory and, at decode
-rows, the launch: each byte read once and written once.
+and writes half as many bytes as values; a thread of an unpack loads
+one word of packed bytes (8, or 4 for the decode) and stores the 16
+bytes of its nibbles, or their 8 decoded values.  What bounds them on
+the card is memory and, at decode rows, the launch: each byte read once
+and written once.
 
-``ops.pack4`` / ``ops.pack4_counts`` / ``ops.unpack4`` are the wrappers
-callers use: CPU tensors take the plain versions, CUDA tensors the
-kernels.
+``ops.pack4`` / ``ops.pack4_counts`` / ``ops.unpack4`` /
+``ops.unpack4_decode`` are the wrappers callers use: CPU tensors take
+the plain versions, CUDA tensors the kernels.
 """
 from __future__ import annotations
 
@@ -51,12 +56,25 @@ def unpack4_plain(packed):
     return out.reshape(*packed.shape[:-1], packed.shape[-1] * 2)
 
 
+def unpack4_decode_plain(packed, T: int, decode_scale):
+    """uint8 [M, C2] -> [M, 2*C2] in ``decode_scale``'s dtype (float32
+    or bfloat16): ``(unpack4(packed).to(dtype) - T) * decode_scale``,
+    the codec's ``wire_u8_to_counts`` then ``rate_decode_signed`` with
+    ``decode_scale = exp(log_scale).to(dtype) / T`` [2*C2]."""
+    return (unpack4_plain(packed).to(decode_scale.dtype) - T) * decode_scale
+
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+_ARGTYPES = {"pack4_launch": [_P, _P, _L, _P],
+             "pack4_counts_launch": [_P, _P, _L, _I, _I, _P],
+             "unpack4_launch": [_P, _P, _L, _P],
+             "unpack4_decode_launch": [_P, _P, _L, _P, _I, _I, _I, _P]}
+
+
 def _library(name):
     fn = getattr(build.load("pack4"), name)
     if fn.argtypes is None:
-        P, L, I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
-        fn.argtypes = ([P, P, L, I, I, P] if name == "pack4_counts_launch"
-                       else [P, P, L, P])
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
 
@@ -122,3 +140,31 @@ def unpack4_cuda(packed):
     M, C2 = packed.shape
     out = torch.empty((M, 2 * C2), dtype=U8, device=packed.device)
     return _launch("unpack4_launch", packed, out, packed.numel())
+
+
+def unpack4_decode_cuda(packed, T: int, decode_scale):
+    """Launch the fused unpack-and-decode kernel on the current stream;
+    same contract as ``unpack4_decode_plain``.  Raises unless ``packed``
+    is a contiguous non-empty uint8 [M, C2] on a CUDA device,
+    ``decode_scale`` a contiguous float32 or bfloat16 [2*C2] on the same
+    device and 1 <= T <= 127, and when the launch is refused."""
+    name = "unpack4_decode_cuda"
+    _check_input(name, packed)
+    M, C2 = packed.shape
+    _require(name, decode_scale.device == packed.device,
+             f"decode_scale lies on {decode_scale.device}, not "
+             f"{packed.device}")
+    _require(name, decode_scale.dtype in (torch.float32, torch.bfloat16),
+             f"decode_scale must be float32 or bfloat16, got "
+             f"{decode_scale.dtype}")
+    _require(name, tuple(decode_scale.shape) == (2 * C2,),
+             f"decode_scale must be [{2 * C2}], got "
+             f"{tuple(decode_scale.shape)}")
+    _require(name, decode_scale.is_contiguous(),
+             "decode_scale must be contiguous")
+    _require(name, 1 <= T <= 127, f"T={T} must fit the uint8 wire's bias")
+    out = torch.empty((M, 2 * C2), dtype=decode_scale.dtype,
+                      device=packed.device)
+    return _launch("unpack4_decode_launch", packed, out, packed.numel(),
+                   decode_scale.data_ptr(), 2 * C2, int(T),
+                   int(decode_scale.dtype == torch.bfloat16))

@@ -19,6 +19,13 @@ no JAX, so it collects where only PyTorch is installed.
   aligned for the vector accesses), where today's ``ops.lif_encode`` and
   ``ops.pack4`` are held to their plain versions too; the codec's
   ``encode_decode`` equals ``encode`` then ``decode`` on the card.
+* The redesigned ``unpack4`` and the fused ``unpack4_decode`` (unpack,
+  unbias and rate decode, f32 and bf16) against their plain versions,
+  exactly, on every conformance case, the vector layout's edges and
+  buffers not aligned for the vector accesses; the wrapper refuses a
+  CPU tensor, a wrong dtype and a decode factor of the wrong length;
+  the codec's ``unpack4_decode`` is one launch on the card and equals
+  the unpack, ``wire_u8_to_counts`` and ``decode``.
 * The ``count_matmul`` kernel against its plain version's float32 sum on
   its conformance sweep and on the edges of each of its designs
   (``COUNT_MATMUL_RAGGED_SHAPES``: every row count 1..17, ragged K and
@@ -48,13 +55,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
     CASES, COUNT_MATMUL_RAGGED_SHAPES, COUNT_MATMUL_SHAPES, LIF_CASES,
-    LIF_TAIL_CASES, PACK4_CASES, PACK4_TAIL_CASES, case_arrays,
-    count_matmul_agrees, count_matmul_case, lif_tensors, pack4_case,
-    pack4_counts_case, rand_case, to_tensors)
+    LIF_TAIL_CASES, PACK4_CASES, PACK4_TAIL_CASES, UNPACK4_LOG_SCALES,
+    case_arrays, count_matmul_agrees, count_matmul_case, lif_tensors,
+    pack4_case, pack4_counts_case, rand_case, to_tensors, unpack4_log_scale)
 from repro_torch.kernels.count_matmul import count_matmul_plain  # noqa: E402
 from repro_torch.kernels.lif_encode import lif_encode_plain  # noqa: E402
+from repro_torch.kernels import pack4 as PK  # noqa: E402
 from repro_torch.kernels.pack4 import (  # noqa: E402
-    pack4_counts_plain, pack4_plain, unpack4_plain)
+    pack4_counts_plain, pack4_plain, unpack4_decode_plain, unpack4_plain)
 from repro_torch.kernels.paged_decode import paged_decode_plain  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -437,3 +445,91 @@ def test_encode_decode_matches_encode_then_decode_on_card(dtype):
         want = TS.encode(x, p, cfg)
         assert torch.equal(counts.to(dt), want)
         assert torch.equal(dec, TS.decode(want, p, cfg, dt))
+
+
+def _decode_scales(C, dtype):
+    """The decode factors ``exp(log_scale).to(dtype)`` of every
+    ``UNPACK4_LOG_SCALES`` kind, on the card (divide by T for the
+    factor)."""
+    return [torch.exp(torch.tensor(unpack4_log_scale(kind, C),
+                                   device="cuda")).to(dtype)
+            for kind in UNPACK4_LOG_SCALES]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PACK4_CASES + PACK4_TAIL_CASES)
+def test_unpack4_decode_matches_plain_on_card(name, dtype):
+    """The redesigned unpack and the fused unpack-and-decode, T = 7 and
+    1, at log-scales of 0 and seeded ones, against their plain versions;
+    the fused call counted as an ``unpack4`` launch."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    p = torch.tensor(pack4_case(name), device="cuda")
+    assert torch.equal(ops.unpack4(p), unpack4_plain(p))
+    for scale in _decode_scales(2 * p.shape[1], dt):
+        for T in (7, 1):
+            before = ops.launch_counts()["unpack4"]
+            got = ops.unpack4_decode(p, T, scale / T)
+            assert ops.launch_counts()["unpack4"] == before + 1
+            assert got.dtype == dt
+            assert torch.equal(got, unpack4_decode_plain(p, T, scale / T))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unpack4_unaligned_views_on_card(dtype):
+    """Packed bytes and decode factors in contiguous views that start 1
+    byte or 1 element into their buffers, at a width the vector layout
+    takes when aligned: the scalar paths."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    p = torch.tensor(pack4_case("tail_m257_c8"), device="cuda")
+    buf = torch.empty(p.numel() + 1, dtype=torch.uint8, device="cuda")
+    pv = buf[1:].view(p.shape)
+    pv.copy_(p)
+    assert pv.data_ptr() % 4 != 0 and pv.is_contiguous()
+    assert torch.equal(ops.unpack4(pv), unpack4_plain(pv))
+    for scale in _decode_scales(2 * p.shape[1], dt):
+        ds = scale / 7
+        dbuf = torch.empty(ds.numel() + 1, dtype=dt, device="cuda")
+        dv = dbuf[1:]
+        dv.copy_(ds)
+        assert dv.data_ptr() % 16 != 0
+        for pp, d in ((pv, ds), (p, dv), (pv, dv)):
+            assert torch.equal(ops.unpack4_decode(pp, 7, d),
+                               unpack4_decode_plain(pp, 7, d))
+
+
+def test_unpack4_decode_cuda_refuses_bad_inputs():
+    """A CPU tensor, a wrong dtype of either input and a decode factor
+    of the wrong length raise before any launch."""
+    _require_cuda()
+    p = torch.zeros(4, 8, dtype=torch.uint8, device="cuda")
+    ds = torch.ones(16, device="cuda")
+    for args in ((p.cpu(), 7, ds), (p, 7, ds.cpu()), (p.float(), 7, ds),
+                 (p, 7, ds.half()), (p, 7, ds[:8]), (p, 7, ds.double())):
+        with pytest.raises(ValueError):
+            PK.unpack4_decode_cuda(*args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spike_unpack4_decode_is_one_launch_on_card(dtype):
+    """The codec's receiving side of a packed wire, at the decode and a
+    prefill shape: one ``unpack4`` launch, equal to the unpack,
+    ``wire_u8_to_counts`` and ``decode`` on the same card."""
+    _require_cuda()
+    from repro_torch.core import spike as TS
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(14)
+    p = {"log_scale": torch.tensor(rng.uniform(-1.0, 1.0, 1024)
+                                   .astype(np.float32), device="cuda")}
+    cfg = TS.SpikeConfig(T=7)
+    for shape in ((1, 4, 1, 512), (1, 1, 256, 512)):
+        packed = torch.tensor(rng.randint(0, 256, shape).astype(np.uint8),
+                              device="cuda")
+        before = ops.launch_counts()["unpack4"]
+        got = TS.unpack4_decode(packed, p, cfg, dt)
+        assert ops.launch_counts()["unpack4"] == before + 1
+        assert got.dtype == dt and got.shape == shape[:-1] + (1024,)
+        want = TS.decode(TS.wire_u8_to_counts(TS.unpack4(packed), cfg.T, dt),
+                         p, cfg, dt)
+        assert torch.equal(got, want)

@@ -8,8 +8,11 @@ on CPU tensors) and the JAX oracles ``ref.pack4_ref`` /
 (interpreted Pallas on the CPU) and ``spike.unpack4``: all exactly
 equal, and unpack inverts pack on 4-bit values.  The codec's
 ``pack4_counts`` (bias and pack in one call) and ``wire_u8_to_counts``
-equal JAX's wire helpers on every count in {-15..15}.  An odd
-last axis raises, as the TPU kernel's assertion does.  The CUDA kernels
+equal JAX's wire helpers on every count in {-15..15}.  The receiving
+side's ``unpack4_decode`` (unpack, unbias and rate decode in one call)
+equals JAX's ``decode(wire_u8_to_counts(unpack4(p), T, dtype), ...)``
+bit for bit.  An odd last axis raises, as the TPU kernel's assertion
+does.  The CUDA kernels
 need the card: ``tests/test_torch_gpu.py`` holds them against these
 plain versions there.
 """
@@ -26,7 +29,8 @@ from repro.kernels import ref as jref  # noqa: E402
 
 from repro_torch.core import spike as TS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.cases import PACK4_CASES, pack4_case  # noqa: E402
+from repro_torch.kernels.cases import (  # noqa: E402
+    PACK4_CASES, UNPACK4_LOG_SCALES, pack4_case, unpack4_log_scale)
 
 torch.set_num_threads(1)
 
@@ -103,3 +107,45 @@ def test_pack4_counts_matches_jax(name, dtype):
         lead = TS.pack4_counts(torch.tensor(c).to(tdt).reshape(
             1, c.shape[0], c.shape[1]), T)
         np.testing.assert_array_equal(lead[0].numpy(), want)
+
+
+def _jax_unpack4_decode(p, log_scale, T, jdt):
+    """JAX's receiving side of a packed wire, as float32 numpy."""
+    out = JS.decode(JS.wire_u8_to_counts(JS.unpack4(jnp.array(p)), T, jdt),
+                    {"log_scale": jnp.array(log_scale)}, JS.SpikeConfig(T=T),
+                    jdt)
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("T", [7, 1])
+@pytest.mark.parametrize("log_scale", UNPACK4_LOG_SCALES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", PACK4_CASES)
+def test_unpack4_decode_matches_jax(name, dtype, log_scale, T):
+    """The unpack, the unbias and the rate decode in one call, against
+    JAX's ``decode(wire_u8_to_counts(unpack4(p), T, dtype), ...)``, bit
+    for bit: ``ops.unpack4_decode`` fed JAX's decoded scale
+    ``exp(log_scale)`` in ``dtype`` (XLA's and torch's f32 ``exp`` may
+    differ in the last place), divided by T here as the codec does; and
+    the codec's ``spike.unpack4_decode`` on leading dims, on the
+    log-scales where the two ``exp`` agree."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    p = pack4_case(name)
+    C = 2 * p.shape[1]
+    ls = unpack4_log_scale(log_scale, C)
+    want = _jax_unpack4_decode(p, ls, T, jdt)
+    jscale = np.asarray(jnp.exp(jnp.array(ls)).astype(jdt)
+                        .astype(jnp.float32))
+    got = ops.unpack4_decode(torch.tensor(p), T,
+                             torch.tensor(jscale).to(tdt) / T)
+    assert got.dtype == tdt and got.shape == (p.shape[0], C)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert (want != 0).any() and (want < 0).any()
+    tscale = torch.exp(torch.tensor(ls)).to(tdt).float().numpy()
+    same = np.where(tscale == jscale, ls, np.float32(0.0))
+    lead = TS.unpack4_decode(torch.tensor(p)[None],
+                             {"log_scale": torch.tensor(same)},
+                             TS.SpikeConfig(T=T), tdt)
+    assert lead.dtype == tdt and lead.shape == (1, p.shape[0], C)
+    np.testing.assert_array_equal(lead[0].float().numpy(),
+                                  _jax_unpack4_decode(p, same, T, jdt))

@@ -9,6 +9,8 @@ Same numpy inputs through ``repro.core`` and ``repro_torch.core``:
 * the integer wire of every coded mode (``_encode_local``: int8 and
   its scales, spike counts, the packed 4-bit bytes of ``spike_pack4``)
   is exactly equal;
+* in bfloat16, the ``spike`` and ``spike_pack4`` boundaries' wires and
+  decoded values exactly equal;
 * ``coded_psum``, ``coded_psum_scatter`` and ``coded_all_gather`` at
   size 1 (JAX under ``shard_map`` on a 1x1 mesh) and ``wire_roundtrip``
   agree within 1e-6 for all six modes (float32; the decode multiplies
@@ -271,6 +273,56 @@ def test_bf16_spike_boundaries_match_jax(name):
     assert tout.dtype == torch.bfloat16 and tout.shape == x.shape
     np.testing.assert_array_equal(tout.float().numpy(),
                                   np.asarray(jout.astype(jnp.float32)))
+
+
+_JPACK4_BF16 = {
+    name: _shard_mapped(lambda x, th, ls, f=fn, kw=kw: f(
+        x, {"theta": th, "log_scale": ls}, _codec(JB, "spike_pack4"),
+        "model", **kw))
+    for name, fn, kw in (("coded_psum", JB.coded_psum, {}),
+                         ("coded_all_gather", JB.coded_all_gather,
+                          {"axis": 1}),
+                         ("coded_psum_scatter", JB.coded_psum_scatter,
+                          {"axis": 1}))}
+
+
+@pytest.mark.parametrize("name", ["wire_roundtrip", "coded_psum",
+                                  "coded_all_gather", "coded_psum_scatter"])
+def test_bf16_spike_pack4_boundaries_match_jax(name):
+    """The ``spike_pack4`` codec (closed form at T = 7, two counts a
+    byte) on bf16 activations: the packed wire exactly equal, and the
+    decoded values of every exchange (the unpack, unbias and decode of
+    ``spike.unpack4_decode``) and of the wire roundtrip equal JAX's (1x1
+    mesh for the collectives)."""
+    rng = np.random.RandomState(10)
+    x = (rng.standard_normal((4, 16, 256)) * 1.5).astype(np.float32)
+    p = _params(rng, 256)
+    jx, tx = jnp.array(x, jnp.bfloat16), torch.tensor(x).to(torch.bfloat16)
+    jcodec, tcodec = _codec(JB, "spike_pack4"), _codec(TB, "spike_pack4")
+    # the decode scale, exp(log_scale) in bf16, is the same on both sides
+    # here (XLA's and torch's f32 exp may differ in the last place)
+    np.testing.assert_array_equal(
+        torch.exp(torch.tensor(p["log_scale"])).to(torch.bfloat16)
+        .float().numpy(),
+        np.asarray(jnp.exp(jnp.array(p["log_scale"])).astype(jnp.bfloat16)
+                   .astype(jnp.float32)))
+    jw = JB._encode_local(jx, _jp(p), jcodec)[0]
+    tw = TB._encode_local(tx, _tp(p), tcodec)[0]
+    assert tw.dtype == torch.uint8 and tw.shape == (4, 16, 128)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    if name == "wire_roundtrip":
+        jout = JB.wire_roundtrip(jx, _jp(p), jcodec)
+        tout = TB.wire_roundtrip(tx, _tp(p), tcodec)
+    else:
+        kw = {} if name == "coded_psum" else {"axis": 1}
+        jout = _JPACK4_BF16[name](jx, jnp.array(p["theta"]),
+                                  jnp.array(p["log_scale"]))
+        tout = getattr(TB, name)(tx, _tp(p), tcodec, **kw)
+    assert tout.dtype == torch.bfloat16 and tout.shape == x.shape
+    np.testing.assert_array_equal(tout.float().numpy(),
+                                  np.asarray(jout.astype(jnp.float32)))
+    assert not np.array_equal(tout.float().numpy(),
+                              tx.float().numpy())   # the codec really ran
 
 
 @pytest.mark.parametrize("name", ["wire_roundtrip", "coded_all_gather"])
