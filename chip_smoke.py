@@ -10,10 +10,11 @@ on failure:
    ``nvcc`` (one process per source, in parallel) into
    ``build/repro_torch/``;
 3. hold each kernel against its plain PyTorch version on the card:
-   paged decode on the six conformance cases of ``kernels/cases.py`` and
-   the serve shape (Hq = Hkv = 16, dh = 64, page 16, K1 = 1), f32 and
-   bf16 pools, with and without the int8 wire epilogue (within 2e-5, the
-   wire within one int8 step); ``lif_encode`` (in both of its compute
+   paged decode on the conformance cases of ``kernels/cases.py`` and
+   the serve shapes (Hq = Hkv = 16, dh = 64, page 16, K1 = 1 for a
+   decode step and K1 = 4 for a verify step), f32 and bf16 pools, with
+   and without the int8 wire epilogue (within 2e-5, the wire within one
+   int8 step); ``lif_encode`` (in both of its compute
    types, float32 and bfloat16, with and without its decode epilogue),
    ``pack4``, ``pack4_counts`` (the wire's bias fused into the pack, f32
    and bf16 counts), ``unpack4`` and ``unpack4_decode`` (the wire's
@@ -64,8 +65,28 @@ on failure:
    wire counts once per consuming weight (wq, wk, wv after the attention
    input, w1, w3 after the MLP input: 24 x 5 launches per decode step
    and per prefill), each launch held to its plain version, and the
-   served streams must not change;
-5. time the launch floor (a one-element ``zero_()``) and each kernel,
+   served streams must not change.  SNN mode (``hnn_mode="snn"``, the
+   SNN roundtrips given seeded thresholds of their own) serves the same
+   requests under ``spike_fused`` and ``spike`` the same way, with one
+   more ``lif_encode`` launch per layer and decode step and two per
+   prefill under ``spike``, each exact;
+5. speculative decoding with the n-gram drafter (``spec_k = 3``, so
+   paged decode at K1 = 4 and the boundary kernels on 16 rows): eight
+   cyclic prompts of 16-120 tokens (period ``len // 4``) x 32 new
+   tokens, under ``none`` (ANN mode), ``spike_fused``, ``spike`` and
+   ``spike_pack4``, each beside a ``spec_k=0`` run of the same requests:
+   launch counts per verify step as per decode step, every live launch
+   checked (paged decode at K1 = 4 against its plain version, the
+   boundary kernels exactly), and the streams equal to the ``spec_k=0``
+   streams up to each request's first coded value that rounds the
+   other way (``WireTrace``, ``rounding_splits``) or a margin of 1e-4;
+   verify steps, the mean accepted length and tokens/s printed;
+6. stochastic sampling: 4096 draws within total-variation distance 0.06
+   of the host reference with no filter, top-k 8 and top-p 0.6, and the
+   main path served twice at temperature 0.8 (top-k 50, top-p 0.9, two
+   greedy requests) with one seed: the same streams twice, and the
+   greedy requests' streams those of the greedy run;
+7. time the launch floor (a one-element ``zero_()``) and each kernel,
    its plain version and its bound at the shapes the serve path gives
    it (``lif_encode`` in both compute types at the decode and the
    prefill rows, with and without the epilogue; ``pack4`` from both
@@ -79,15 +100,16 @@ on failure:
    CUDA kernels and memory operations of one decode step of four slots,
    f32, under ``spike_fused``, ``spike`` and ``spike_pack4``, with
    ``torch.profiler`` (after every timing); print one ``kernels`` JSON
-   line;
-6. print ``{"ok": true, "device": {...}}`` as the last line.
+   line (paged decode's entry at the decode and the verify shape);
+8. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result.  It imports nothing of JAX.
 
 ``python3 chip_smoke.py --kernels-per-step SRC`` builds the kernels of
 the package under ``SRC`` (the ``src`` directory of a checkout, another
-commit's too) and prints only its kernels per decode step and a digest
+commit's too) and prints only its kernels per decode step (in all and by
+kernel name) and a digest
 of the streams it serves under the codecs it counts (``streams_sha256``,
 as the full run prints them), so that two commits are compared in one
 call.
@@ -229,10 +251,11 @@ def streams_digest(streams):
                           ).hexdigest()[:16]
 
 
-def serve_case(cfg, slot_lens, seed=7):
+def serve_case(cfg, slot_lens, seed=7, K1=1):
     """Kernel inputs at the serve shape: a pool of 64 pages of one layer,
     four slots whose lists an allocator built for ``slot_lens`` tokens,
-    each querying its last position."""
+    each querying its last K1 positions (K1 = 1: a decode step; K1 =
+    SPEC_K + 1: a verify step)."""
     from repro_torch.models.blocks_attn import attn_dims
     from repro_torch.serving.kv_cache import SlotAllocator
     d = attn_dims(cfg)
@@ -242,19 +265,21 @@ def serve_case(cfg, slot_lens, seed=7):
     for L in slot_lens:
         alloc.alloc(L)
     shape = (alloc.num_pages, psz, d["Hkv"], d["dh"])
-    q = rng.standard_normal((len(slot_lens), 1, d["Hq"], d["dh"]))
+    q = rng.standard_normal((len(slot_lens), K1, d["Hq"], d["dh"]))
     arrays = (q.astype(np.float32),
               rng.standard_normal(shape).astype(np.float32),
               rng.standard_normal(shape).astype(np.float32),
               alloc.page_list_loc[:, 0].copy(),
               alloc.page_list_pos[:, 0].copy(),
-              np.asarray(slot_lens, np.int32)[:, None] - 1)
+              np.asarray(slot_lens, np.int32)[:, None] - K1
+              + np.arange(K1, dtype=np.int32))
     return arrays
 
 
 def time_kernel(arrays, cfg):
-    """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) at the serve
-    shape with the wire epilogue on, as the spike_fused decode runs."""
+    """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) at a serve
+    shape (K1 = 1 or more queries a slot) with the wire epilogue on, as
+    the spike_fused decode and verify steps run it."""
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels.cases import to_tensors
     q, kp, vp, clp, clo, qpos = to_tensors(arrays, "cuda")
@@ -264,9 +289,10 @@ def time_kernel(arrays, cfg):
                                               encode_wire=True), flush)
     plain_ms = cuda_ms(lambda: PD.paged_decode_plain(
         q, kp, vp, clp, clo, qpos, encode_wire=True), flush)
-    # yardstick: SDPA over the already gathered live tokens of each slot
-    B, _, Hq, dh = q.shape
-    lens = arrays[5][:, 0] + 1
+    # yardstick: SDPA over the already gathered live tokens of each slot,
+    # each query masked to the positions up to its own
+    B, K1, Hq, dh = q.shape
+    lens = arrays[5][:, -1] + 1
     Lmax = int(lens.max())
     k_d = torch.zeros((B, Hq, Lmax, dh), device="cuda")
     v_d = torch.zeros_like(k_d)
@@ -276,18 +302,19 @@ def time_kernel(arrays, cfg):
         vv = vp[rows].reshape(-1, Hq, dh)[:lens[b]]
         k_d[b, :, :lens[b]] = kk.transpose(0, 1)
         v_d[b, :, :lens[b]] = vv.transpose(0, 1)
-    mask = (torch.arange(Lmax, device="cuda")[None, :]
-            < torch.tensor(lens, device="cuda")[:, None])[:, None, None, :]
+    mask = (torch.arange(Lmax, device="cuda")[None, None, :]
+            <= torch.tensor(arrays[5], device="cuda")[:, :, None])[:, None]
     q_d = q.permute(0, 2, 1, 3).contiguous()
     lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q_d, k_d, v_d, attn_mask=mask), flush)
     # least work: every live token's K and V row once, q, and the wire
     # outputs (int8 partial, f32 scale, f32 lse); 4 flops per score entry
+    # a query sees
     tokens = int(lens.sum())
     nbytes = (2 * tokens * kp.shape[2] * dh * kp.element_size()
-              + q.numel() * 4 + B * Hq * dh + 2 * B * Hq * 4
+              + q.numel() * 4 + B * K1 * Hq * dh + 2 * B * K1 * Hq * 4
               + 2 * clp.numel() * 4 + qpos.numel() * 4)
-    flops = 4 * tokens * Hq * dh
+    flops = 4 * int((arrays[5] + 1).sum()) * Hq * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (ms, plain_ms, lib_ms, max(t_bytes, t_ops),
@@ -732,6 +759,7 @@ class LaunchCheck:
         self.cm_outputs = 0
         self.cm_steps = 0        # most bf16 steps where the tolerance is
         #                          finer than half a step
+        self.k1 = collections.Counter()   # paged decode launches by K1
 
     def patches(self):
         from repro_torch.kernels import count_matmul as CM
@@ -787,6 +815,7 @@ class LaunchCheck:
         out = orig(*args, **kw)
         plain = paged_decode_plain(*args, **kw)
         self.launches["paged_decode"] += 1
+        self.k1[args[0].shape[1]] += 1
         if kw.get("encode_wire"):
             (w, s, lse), (pw, ps, plse) = out, plain
             torch.testing.assert_close(s, ps, rtol=1e-5, atol=0.0)
@@ -802,99 +831,149 @@ class LaunchCheck:
 
 
 class WireTrace:
-    """Record every coded value the decode steps of one engine run put on
-    a wire: the spike counts of each boundary encode with the values they
-    were rounded from, and the int8 attention partial with its scale,
-    each tagged with the (rid, token index) every slot was producing."""
+    """Record every coded value the decode or verify steps of one engine
+    run put on a wire: the spike counts of each boundary encode with the
+    values they were rounded from, and the int8 attention partial with
+    its scale.  Each row is keyed by the token it produces: (rid, token
+    index, site), where the site counts the step's wire events in order
+    (the same order at K1 = 1 and at K1 > 1).  A verify step's row j of
+    a slot with n committed tokens produces token n + j if the j drafts
+    before it are committed tokens; each row keeps those drafts, so that
+    ``rows`` can drop the others once the streams are known.
+    ``schedule`` lists every event's (wire kind, slot progress) in
+    order, so two runs can be held to one schedule."""
 
-    def __init__(self, num_slots):
-        self.num_slots = num_slots
+    def __init__(self):
         self.eng = None
-        self.events = []         # (kind, rounded-from, wire, progress)
+        self._step = None
+        self.schedule = []
+        self._rows = {}          # (rid, t, site) -> (kind, pre, wire, drafts)
 
     def patches(self):
         from repro_torch.core import boundary, spike
-        return [_Patch(spike, "encode", self._encode),
+        from repro_torch.models import model as M
+        return [_Patch(M, "forward_decode", self._forward),
+                _Patch(M, "forward_verify", self._forward),
+                _Patch(spike, "encode", self._encode),
                 _Patch(spike, "encode_decode", self._encode_decode),
                 _Patch(boundary, "coded_combine_partials", self._combine)]
 
-    def _decode_shaped(self, x):
-        return x.shape[0] == self.num_slots and x.shape[1] == 1
+    def _forward(self, orig, params, cache, tokens, *a, **kw):
+        feed = tokens.reshape(tokens.shape[0], -1).cpu().numpy()
+        self._step = {"prog": self.eng.slot_progress(), "feed": feed,
+                      "site": 0}
+        try:
+            return orig(params, cache, tokens, *a, **kw)
+        finally:
+            self._step = None
+
+    def _record(self, kind, pre, wire):
+        step = self._step
+        if step is None:            # a prefill
+            return
+        site = step["site"]
+        step["site"] += 1
+        self.schedule.append((kind, step["prog"]))
+        for b, prog in enumerate(step["prog"]):
+            if prog is None:
+                continue
+            rid, n = prog
+            for j in range(pre.shape[1]):
+                self._rows[rid, n + j, site] = (
+                    kind, pre[b, j], wire[b, j],
+                    step["feed"][b, 1:j + 1].tolist())
 
     def _encode(self, orig, x, params, cfg):
         counts = orig(x, params, cfg)
-        if self._decode_shaped(x):
-            self.events.append(("spike counts", x.detach().float().clone(),
-                                counts.detach().to(torch.int8),
-                                self.eng.slot_progress()))
+        self._record("spike counts", x.detach().float().clone(),
+                     counts.detach().to(torch.int8))
         return counts
 
     def _encode_decode(self, orig, x, params, cfg):
-        # a wire roundtrip: one event, unless it ran (and so reported)
-        # ``encode`` itself
-        seen = len(self.events)
+        # one event, unless it ran (and so reported) ``encode`` itself
+        site = None if self._step is None else self._step["site"]
         counts, dec = orig(x, params, cfg)
-        if self._decode_shaped(x) and len(self.events) == seen:
-            self.events.append(("spike counts", x.detach().float().clone(),
-                                counts.detach().to(torch.int8),
-                                self.eng.slot_progress()))
+        if self._step is not None and self._step["site"] == site:
+            self._record("spike counts", x.detach().float().clone(),
+                         counts.detach().to(torch.int8))
         return counts, dec
 
     def _combine(self, orig, wire, scale, lse, *a, **kw):
-        self.events.append(("attention wire",
-                            (wire.float() * scale).detach().clone(),
-                            wire.detach().clone(), self.eng.slot_progress()))
+        self._record("attention wire", (wire.float() * scale).detach(),
+                     wire.detach().clone())
         return orig(wire, scale, lse, *a, **kw)
 
+    def rows(self, streams):
+        """(rid, token index) -> {site: (kind, rounded-from, wire)} of the
+        rows that produced a token of ``streams``."""
+        out = collections.defaultdict(dict)
+        for (rid, t, site), (kind, pre, wire, drafts) in self._rows.items():
+            s = streams[rid]
+            if t < len(s) and drafts == s[t - len(drafts):t]:
+                out[rid, t][site] = (kind, pre, wire)
+        return out
 
-def first_rounding_splits(tr_f, tr_r, noise=1e-4):
-    """Per request, the first token whose decode step put a different
-    coded value on any wire in the two traced runs.  Raises unless each
-    such first difference is a rounding split: the values rounded from
-    agree to float noise (spike counts: within ``noise`` of the row's
-    magnitude — 1e-4 in float32, one bf16 ulp of the row's largest value,
-    2**-7 of it, in bfloat16) or one int8 step (attention partial).
-    Returns (rid -> token index, wire kind -> [requests split there
-    first, largest relative gap seen at those splits])."""
-    if len(tr_f.events) != len(tr_r.events):
-        raise AssertionError("the traced runs took different schedules")
+
+def rounding_splits(tr_a, tr_b, a, b, noise=1e-4):
+    """Per request, the first token whose producing row put a different
+    coded value on any wire in the run traced by ``tr_a`` (streams
+    ``a``) and the one traced by ``tr_b`` (streams ``b``), among the
+    tokens both runs produced from the same stream so far.  Raises
+    unless each such first difference is a rounding split: the values
+    rounded from agree to float noise (spike counts: within ``noise`` of
+    the row's magnitude — 1e-4 in float32, one bf16 ulp of the row's
+    largest value, 2**-7 of it, in bfloat16) or one int8 step (attention
+    partial); or if a token both runs produced from one stream has no
+    traced row.  Returns (rid -> token index, wire kind -> [requests
+    split there first, largest relative gap seen at those splits])."""
+    rows_a, rows_b = tr_a.rows(a), tr_b.rows(b)
     cut, splits = {}, {}
-    for (kind, pre_f, w_f, prog), (kind_r, pre_r, w_r, prog_r) in zip(
-            tr_f.events, tr_r.events):
-        if kind != kind_r or prog != prog_r:
-            raise AssertionError("the traced runs took different schedules")
-        rows = (w_f != w_r).flatten(1).any(1).nonzero().flatten().tolist()
-        for b in rows:
-            if prog[b] is None or prog[b][0] in cut:
+    for rid in sorted(b):
+        for t in range(1, min(len(a[rid]), len(b[rid]))):
+            if a[rid][t - 1] != b[rid][t - 1]:
+                break                   # the rows were fed different tokens
+            ra, rb = rows_a.get((rid, t)), rows_b.get((rid, t))
+            if ra is None or rb is None or ra.keys() != rb.keys():
+                raise AssertionError(f"request {rid} token {t}: the runs "
+                                     "traced different rows")
+            diff = [k for k in sorted(ra)
+                    if not torch.equal(ra[k][2], rb[k][2])]
+            if not diff:
                 continue
-            rid, t = prog[b]
-            cut[rid] = t
-            gap = float((pre_f[b] - pre_r[b]).abs().max()
-                        / pre_r[b].abs().max().clamp(min=1e-30))
+            kind, pre_a, _ = ra[diff[0]]
+            pre_b = rb[diff[0]][1]
+            gap = float((pre_a - pre_b).abs().max()
+                        / pre_b.abs().max().clamp(min=1e-30))
             limit = noise if kind == "spike counts" else 1.0 / 127 + 1e-5
             if gap > limit:
                 raise AssertionError(
                     f"request {rid} token {t}: {kind} differ with values "
                     f"{gap:.3g} apart — not a rounding split")
+            cut[rid] = t
             n, worst = splits.get(kind, (0, 0.0))
             splits[kind] = [n + 1, max(worst, gap)]
+            break
     return cut, splits
 
 
 def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
-          shadow=False):
+          shadow=False, temps=None, **knobs):
     """One engine run; returns (streams, margins, engine, seconds,
     decode-only step times).  ``hooks`` (``LaunchCheck``, ``WireTrace``)
-    watch the run; ``shadow`` turns the count matmul shadow on
-    (``Context.count_matmul_shadow``)."""
+    watch the run; ``shadow`` turns the count matmul
+    shadow on (``Context.count_matmul_shadow``); ``temps`` are the
+    requests' temperatures (greedy without); ``knobs`` are further
+    ``EngineConfig`` fields (``spec_k``, ``top_k``, ``top_p``,
+    ``seed``)."""
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     eng = ServingEngine(cfg, params, EngineConfig(
-        num_slots=4, max_seq=256, page_size=16, attn_kernel=kernel),
-        device=device)
+        num_slots=4, max_seq=256, page_size=16, attn_kernel=kernel,
+        **knobs), device=device)
     if shadow:
         eng.ctx = eng.ctx.with_(count_matmul_shadow=True)
     for rid, (prompt, new) in enumerate(requests):
-        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new,
+                           temperature=0.0 if temps is None else temps[rid]))
     out, steps = {}, []
     sync = torch.cuda.synchronize if eng.device.type == "cuda" else (
         lambda: None)
@@ -952,27 +1031,59 @@ def check_streams(fused, ref, ref_margins, cut=None):
     return compared, by_split, by_margin
 
 
+def snn_roundtrips(eng):
+    """SNN mode's extra roundtrips in one engine run: per layer, one
+    after the MLP output of every decode (or verify) step, and two per
+    prefill, after the attention and the MLP outputs (the decode and
+    verify attention blocks take none, as in the reference); 0 outside
+    SNN mode."""
+    if eng.cfg.hnn_mode != "snn":
+        return 0
+    return N_LAYERS * (eng.decode_steps + 2 * eng.prefills)
+
+
 def expected_launches(codec, walk, eng, shadow=False):
     """Launches of each kernel in one engine run: paged decode once per
-    layer and decode step on the kernel walk; ``lif_encode`` at each of a
-    layer's 4 coded boundaries per decode step (2 wire roundtrips, 2
-    coded psums) and per prefill (2 coded gathers, 2 coded reduce-
-    scatters) under ``spike``; ``pack4`` and ``unpack4`` once per coded
-    exchange under ``spike_pack4`` (``unpack4`` as ``unpack4_decode``):
-    2 per layer and decode step (the coded psums; a wire roundtrip
-    exchanges nothing) and 4 per prefill;
-    ``count_matmul`` only with the shadow on: once per consuming weight
-    (5 per layer) per decode step and per prefill."""
+    layer and decode (or verify) step on the kernel walk; ``lif_encode``
+    at each of a layer's 4 coded boundaries per decode step (2 wire
+    roundtrips, 2 coded psums) and per prefill (2 coded gathers, 2 coded
+    reduce-scatters) under ``spike``, and at each SNN roundtrip in SNN
+    mode; ``pack4`` and ``unpack4`` once per coded exchange under
+    ``spike_pack4`` (``unpack4`` as ``unpack4_decode``): 2 per layer and
+    decode step (the coded psums; a wire roundtrip exchanges nothing)
+    and 4 per prefill; ``count_matmul`` only with the shadow on: once
+    per consuming weight (5 per layer) per decode step and per
+    prefill."""
     steps, pre = eng.decode_steps, eng.prefills
     want = {"paged_decode": N_LAYERS * steps if walk == "fused" else 0,
             "lif_encode": 0, "pack4": 0, "unpack4": 0,
             "count_matmul": (N_LAYERS * SHADOW_WEIGHTS * (steps + pre)
                              if shadow else 0)}
     if codec == "spike":
-        want["lif_encode"] = 4 * N_LAYERS * (steps + pre)
+        want["lif_encode"] = 4 * N_LAYERS * (steps + pre) + snn_roundtrips(
+            eng)
     if codec == "spike_pack4":
         want["pack4"] = want["unpack4"] = N_LAYERS * (2 * steps + 4 * pre)
     return want
+
+
+def check_fused_variants(label, codec, check, want, eng):
+    """The served roundtrips took the decode epilogue, the served packs
+    the fused bias, the served unpacks the fused unbias and decode:
+    every wire roundtrip (and SNN roundtrip) is a ``lif_encode`` launch
+    with the epilogue, every pack a ``pack4_counts``, every unpack an
+    ``unpack4_decode``."""
+    roundtrips = 2 * N_LAYERS * eng.decode_steps + snn_roundtrips(eng)
+    fused_want = {"epilogues": roundtrips if codec == "spike" else 0,
+                  "pack4_counts": want["pack4"], "pack4": 0,
+                  "unpack4_decode": want["unpack4"], "unpack4": 0}
+    fused_got = {"epilogues": check.epilogues,
+                 **{e: check.entries[e] for e in (
+                     "pack4_counts", "pack4", "unpack4_decode",
+                     "unpack4")}}
+    if fused_got != fused_want:
+        raise AssertionError(f"{label}: fused variants {fused_got}, "
+                             f"expected {fused_want}")
 
 
 def serve_codec(cfg, params, requests, codec, shadow=False):
@@ -984,13 +1095,14 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
     before and read just after).  Returns (launch counts of the timed
     run, the ``LaunchCheck``, tokens/s, median decode step ms, launch
     counts of the checked run, ``streams_digest`` of the served
-    streams)."""
+    streams, (the served streams, their margins))."""
     from repro_torch.kernels import ops
     cfg_c = cfg.replace(codec=codec)
     bf16 = cfg.dtype == torch.bfloat16
-    label = f"hnn/{codec}" + ("/bf16" if bf16 else "")
+    label = f"{cfg.hnn_mode}/{codec}" + ("/bf16" if bf16 else "")
     ops.reset_launch_counts()
-    fused, _, eng, secs, steps = serve(cfg_c, params, requests, "fused")
+    fused, margins, eng, secs, steps = serve(cfg_c, params, requests,
+                                             "fused")
     launches = ops.launch_counts()
     want = expected_launches(codec, "fused", eng)
     if launches != want or eng.decode_steps == 0:
@@ -1010,7 +1122,7 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
           f"launches {launches}, streams sha256 {digest}", flush=True)
 
     ops.reset_launch_counts()
-    tr_r = WireTrace(4)
+    tr_r = WireTrace()
     ref, ref_margins, eng_r, secs_r, steps_r = serve(
         cfg_c, params, requests, "reference", hooks=(tr_r,))
     if ops.launch_counts() != expected_launches(codec, "reference", eng_r):
@@ -1019,7 +1131,7 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
     print(f"serve {label} reference (traced): {n_tok / secs_r:.1f} "
           f"tok/s, median decode step {1e3 * np.median(steps_r):.3f} ms",
           flush=True)
-    tr_f, check = WireTrace(4), LaunchCheck()
+    tr_f, check = WireTrace(), LaunchCheck()
     ops.reset_launch_counts()
     traced, _, eng_t, *_ = serve(cfg_c, params, requests, "fused",
                                  hooks=(tr_f, check), shadow=shadow)
@@ -1031,23 +1143,12 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
     if checked != want_t or {k: check.launches[k] for k in want_t} != want_t:
         raise AssertionError(f"{label}: checked run launches {checked}, "
                              f"checked {check.launches}, expected {want_t}")
-    # the served roundtrips took the decode epilogue, the served packs
-    # the fused bias, the served unpacks the fused unbias and decode:
-    # every wire roundtrip is a launch with the epilogue, every pack a
-    # ``pack4_counts``, every unpack an ``unpack4_decode``
-    fused_want = {"epilogues": (2 * N_LAYERS * eng_t.decode_steps
-                                if codec == "spike" else 0),
-                  "pack4_counts": want_t["pack4"], "pack4": 0,
-                  "unpack4_decode": want_t["unpack4"], "unpack4": 0}
-    fused_got = {"epilogues": check.epilogues,
-                 **{e: check.entries[e] for e in (
-                     "pack4_counts", "pack4", "unpack4_decode",
-                     "unpack4")}}
-    if fused_got != fused_want:
-        raise AssertionError(f"{label}: fused variants {fused_got}, "
-                             f"expected {fused_want}")
-    cut, splits = first_rounding_splits(tr_f, tr_r,
-                                        2.0**-7 if bf16 else 1e-4)
+    check_fused_variants(label, codec, check, want_t, eng_t)
+    if tr_f.schedule != tr_r.schedule:
+        raise AssertionError(f"{label}: the traced runs took different "
+                             "schedules")
+    cut, splits = rounding_splits(tr_f, tr_r, fused, ref,
+                                  2.0**-7 if bf16 else 1e-4)
     first = ", ".join(f"{n} at {kind} (values rounded from within "
                       f"{gap:.2g} of each other)"
                       for kind, (n, gap) in sorted(splits.items()))
@@ -1072,15 +1173,205 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
           f"that rounded the other way [{first}], {by_margin} up to a margin "
           f"<= {MARGIN}",
           flush=True)
-    return launches, check, tok_s, step_ms, checked, digest
+    return launches, check, tok_s, step_ms, checked, digest, (fused, margins)
+
+
+#: draft tokens per verify step of the spec phase: K1 = SPEC_K + 1
+SPEC_K = 3
+#: the spec phase's codecs, each served with and without spec
+SPEC_CODECS = ("none", "spike_fused", "spike", "spike_pack4")
+
+
+def spec_requests():
+    """The spec phase's workload: eight cyclic prompts of 16-120 tokens,
+    each of period ``len // 4`` (as ``serve_bench.py --repetitive``
+    builds them), 32 new tokens each; numpy seed 0."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(16, 121, 8)
+    return [((rng.randint(0, 256, max(int(L) // 4, 1)).tolist() * int(L))
+             [:int(L)], 32) for L in lens]
+
+
+def serve_spec(cfg, params, requests, codec):
+    """Speculative decoding with the n-gram drafter (``spec_k=3``,
+    K1 = 4) beside ``spec_k=0`` on the same requests, kernel walk.  The
+    spec run is timed with every launch count set to 0 just before it
+    and read just after (one paged-decode launch per layer and verify
+    step, the boundary kernels as in a decode step); a second spec run
+    checks every launch on its live inputs (paged decode at K1 = 4, the
+    boundary kernels exactly) and must serve the same streams.  The
+    streams must equal the ``spec_k=0`` streams up to each request's
+    first coded value that rounds the other way (both runs traced by
+    ``WireTrace``; a verify step multiplies [16, 1024] rows where a
+    decode step multiplies [4, 1024], and the two may round apart) or
+    a ``spec_k=0`` margin of 1e-4.  Returns a summary dict."""
+    from repro_torch.kernels import ops
+    cfg_c = cfg.replace(codec=codec)
+    label = f"{cfg.hnn_mode}/{codec}"
+    coded = cfg_c.hnn_mode != "ann" and codec != "none"
+    van, van_margins, eng_v, secs_v, steps_v = serve(cfg_c, params, requests,
+                                                     "fused")
+    ops.reset_launch_counts()
+    spec, _, eng, secs, steps = serve(cfg_c, params, requests, "fused",
+                                      spec_k=SPEC_K)
+    launches = ops.launch_counts()
+    want = expected_launches(codec, "fused", eng)
+    if launches != want or eng.spec_verifies == 0:
+        raise AssertionError(f"spec {label}: launches {launches}, expected "
+                             f"{want} for {eng.decode_steps} verify steps "
+                             f"and {eng.prefills} prefills")
+    for rid, (prompt, new) in enumerate(requests):
+        if len(spec[rid]) != new or not all(0 <= x < cfg.vocab
+                                            for x in spec[rid]):
+            raise AssertionError(f"spec {label} request {rid}: bad stream "
+                                 f"{spec[rid]}")
+    tr_v, tr_s, check = WireTrace(), WireTrace(), LaunchCheck()
+    if coded:
+        serve(cfg_c, params, requests, "fused", hooks=(tr_v,))
+    ops.reset_launch_counts()
+    traced, _, eng_t, *_ = serve(
+        cfg_c, params, requests, "fused", spec_k=SPEC_K,
+        hooks=(tr_s, check) if coded else (check,))
+    if traced != spec:
+        raise AssertionError(f"spec {label}: two runs gave different "
+                             "streams")
+    want_t = expected_launches(codec, "fused", eng_t)
+    if (ops.launch_counts() != want_t
+            or {k: check.launches[k] for k in want_t} != want_t
+            or dict(check.k1) != {SPEC_K + 1: want_t["paged_decode"]}):
+        raise AssertionError(f"spec {label}: checked run launches "
+                             f"{ops.launch_counts()}, checked "
+                             f"{check.launches}, K1 {dict(check.k1)}, "
+                             f"expected {want_t}")
+    check_fused_variants(f"spec {label}", codec, check, want_t, eng_t)
+    cut, splits = (rounding_splits(tr_s, tr_v, spec, van) if coded
+                   else ({}, {}))
+    compared, by_split, by_margin = check_streams(spec, van, van_margins,
+                                                  cut)
+    n_tok = sum(len(v) for v in spec.values())
+    out = {"launches": launches, "verify_steps": eng.decode_steps,
+           "decode_steps_spec_k0": eng_v.decode_steps,
+           "mean_accepted_len": eng.mean_accepted_len(),
+           "tok_s": n_tok / secs, "tok_s_spec_k0": n_tok / secs_v,
+           "median_step_ms": 1e3 * float(np.median(steps)),
+           "median_step_ms_spec_k0": 1e3 * float(np.median(steps_v)),
+           "tokens_compared": compared, "cut_by_split": by_split,
+           "cut_by_margin": by_margin,
+           "split_points": {str(r): t for r, t in sorted(cut.items())},
+           "streams_sha256": streams_digest(spec)}
+    first = ", ".join(f"{n} at {kind} (values rounded from within "
+                      f"{gap:.2g} of each other)"
+                      for kind, (n, gap) in sorted(splits.items()))
+    print(f"spec {label}: {eng.decode_steps} verify steps (spec_k=0: "
+          f"{eng_v.decode_steps} decode steps), mean accepted length "
+          f"{out['mean_accepted_len']:.3f}, {out['tok_s']:.1f} tok/s "
+          f"(spec_k=0: {out['tok_s_spec_k0']:.1f}), median step "
+          f"{out['median_step_ms']:.3f} ms (spec_k=0: "
+          f"{out['median_step_ms_spec_k0']:.3f}), launches {launches}; "
+          f"checked run: {dict(check.launches)} launches checked on live "
+          f"inputs, paged decode at K1 = {sorted(check.k1)}, "
+          f"{check.flipped} wire values one step from the plain "
+          f"version's, every boundary-kernel launch exact; spec == "
+          f"spec_k=0 on {compared} of {n_tok} tokens: {by_split} requests "
+          f"compared up to the first coded value that rounded the other "
+          f"way [{first}] at tokens {out['split_points']}, {by_margin} up "
+          f"to a margin <= {MARGIN}", flush=True)
+    return out
+
+
+def host_reference_probs(row, temp, top_k=0, top_p=0.0):
+    """Exact next-token distribution of the reference sampler: the
+    logits filtered on the host (top-k threshold, then the smallest
+    top-probability nucleus with mass >= top_p), softmax at ``temp``
+    (a copy of the repository's test reference, in float64)."""
+    lt = np.asarray(row, np.float64) / temp
+    if top_k:
+        thr = np.sort(lt)[-top_k]
+        lt = np.where(lt < thr, -np.inf, lt)
+    if 0.0 < top_p < 1.0:
+        p = np.exp(lt - lt[np.isfinite(lt)].max())
+        p = p / p.sum()
+        order = np.argsort(-p)
+        keep = np.cumsum(p[order]) - p[order] < top_p   # minimal nucleus
+        mask = np.zeros(lt.shape, bool)
+        mask[order[keep]] = True
+        lt = np.where(mask, lt, -np.inf)
+    e = np.exp(lt - lt[np.isfinite(lt)].max())
+    e[~np.isfinite(e)] = 0.0
+    return e / e.sum()
+
+
+def check_sampling_tv():
+    """4096 draws of one row on the card, with no filter, top-k 8 and
+    top-p 0.6, each within total-variation distance 0.06 of the host
+    reference distribution (the CPU test's bound, row and draws).
+    Returns {setting: distance}."""
+    from repro_torch.serving import sampling
+    V, DRAWS, TEMP = 64, 4096, 0.7
+    row = np.random.RandomState(5).randn(V) * 2.0
+    logits = torch.tensor(np.broadcast_to(row, (DRAWS, V)),
+                          dtype=torch.float32, device="cuda")
+    tv = {}
+    for name, kw in (("none", {}), ("top_k=8", {"top_k": 8}),
+                     ("top_p=0.6", {"top_p": 0.6})):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        tok = sampling.sample(logits, np.full(DRAWS, TEMP, np.float32), gen,
+                              sampling.SamplingConfig(**kw)).cpu().numpy()
+        emp = np.bincount(tok, minlength=V) / DRAWS
+        tv[name] = float(0.5 * np.abs(emp - host_reference_probs(
+            row, TEMP, **kw)).sum())
+        if not tv[name] < 0.06:
+            raise AssertionError(f"sampling {name}: TV distance {tv[name]}")
+    return tv
+
+
+def serve_sampled(cfg, params, requests, greedy, greedy_margins):
+    """Temperature 0.8 with top-k 50 and top-p 0.9, requests 1 and 5
+    greedy, served twice with seed 1: the two runs must give the same
+    streams, and the greedy requests the greedy run's streams
+    (``greedy``, ``greedy_margins``) under the margin rule.  Returns a
+    summary dict."""
+    temps = [0.0 if rid in (1, 5) else 0.8 for rid in range(len(requests))]
+    knobs = dict(temps=temps, top_k=50, top_p=0.9, seed=1)
+    a, _, eng, secs, _ = serve(cfg, params, requests, "fused", **knobs)
+    b, *_ = serve(cfg, params, requests, "fused", **knobs)
+    if a != b:
+        raise AssertionError("sampled runs with one seed gave different "
+                             "streams")
+    for rid, (_, new) in enumerate(requests):
+        if len(a[rid]) != new or not all(0 <= x < cfg.vocab
+                                         for x in a[rid]):
+            raise AssertionError(f"sampled request {rid}: bad stream")
+    kept = [rid for rid, t in enumerate(temps) if t == 0]
+    compared, _, by_margin = check_streams(
+        {r: a[r] for r in kept}, {r: greedy[r] for r in kept},
+        greedy_margins)
+    differ = sum(a[r] != greedy[r] for r, t in enumerate(temps) if t > 0)
+    n_tok = sum(len(v) for v in a.values())
+    out = {"tok_s": n_tok / secs, "greedy_tokens_compared": compared,
+           "greedy_cut_by_margin": by_margin,
+           "sampled_streams_unlike_greedy": differ,
+           "streams_sha256": streams_digest(a)}
+    print(f"serve sampled {cfg.hnn_mode}/{cfg.codec}: {n_tok} tokens at "
+          f"{out['tok_s']:.1f} tok/s, two runs of seed 1 equal, greedy "
+          f"requests {kept} equal the greedy run on {compared} tokens "
+          f"({by_margin} cut by a margin), {differ} of "
+          f"{len(temps) - len(kept)} sampled streams differ from greedy",
+          flush=True)
+    return out
 
 
 def kernels_per_step(cfg, params, codec):
     """The device work of one decode step at a full batch, from
     ``torch.profiler``: four requests admitted and decoding, and one step
-    with no admission profiled.  Returns ({"kernels": CUDA kernels,
-    "memory_ops": copies and sets}, {kernel name: launches}), or None
-    when the profiler records no device activity."""
+    with no admission profiled.  The profiler loses a varying number of
+    the launches made in the first instants of its window (a step that
+    starts there loses 1-94 of its opening launches: the staging copies,
+    the KV write targets, the embedding gather, the first norm, with or
+    without a warm-up step), so the step starts 0.1 s in.  Returns
+    ({"kernels": CUDA kernels, "memory_ops": copies and sets}, {kernel
+    name: launches}), or None when the profiler records no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import EngineConfig, Request, ServingEngine
@@ -1097,6 +1388,7 @@ def kernels_per_step(cfg, params, codec):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
         eng.step()
         torch.cuda.synchronize()
     if (eng.prefills, eng.decode_steps, eng.num_active) != (pre, steps + 1,
@@ -1131,19 +1423,23 @@ STEP_CODECS = ("spike_fused", "spike", "spike_pack4")
 
 def count_step_kernels(label, cfg, params):
     """Print the CUDA kernels of one decode step under ``STEP_CODECS``,
-    for the package on ``sys.path``.  Raises when the profiler records
-    no device activity, so that the phase measures or fails."""
-    counts = {}
+    for the package on ``sys.path``, and every kernel's launches by name
+    (so that two readings can be told apart).  Raises when the profiler
+    records no device activity, so that the phase measures or fails."""
+    counts, by_name = {}, {}
     for codec in STEP_CODECS:
         got = kernels_per_step(cfg, params, codec)
         if got is None:
             raise AssertionError(f"kernels per decode step {label} {codec}: "
                                  "the profiler recorded no device activity")
         counts[codec], names = got
+        by_name[codec] = dict(sorted(names.items()))
         top = ", ".join(f"{n} x {k[:48]}" for k, n in names.most_common(6))
         print(f"kernels per decode step {label} {codec}: {counts[codec]} "
               f"(most launched: {top})", flush=True)
     print(json.dumps({"kernels_per_decode_step": {label: counts}}),
+          flush=True)
+    print(json.dumps({"kernel_launches_by_name": {label: by_name}}),
           flush=True)
     return counts
 
@@ -1213,11 +1509,13 @@ def main(argv) -> int:
             print(f"check paged_decode {name} {str(dt)[6:]}: max abs err "
                   f"{e:.3g}", flush=True)
     s_case = serve_case(cfg, [int(L) + 16 for L in lens[:4]])
-    for dt in (torch.float32, torch.bfloat16):
-        e = compare_kernel(s_case, 0, 0.0, dt)
-        max_err = max(max_err, e)
-        print(f"check paged_decode serve_shape {str(dt)[6:]}: max abs err "
-              f"{e:.3g}", flush=True)
+    v_case = serve_case(cfg, [int(L) + 16 for L in lens[:4]], K1=SPEC_K + 1)
+    for name, case in (("serve_shape", s_case), ("verify_shape", v_case)):
+        for dt in (torch.float32, torch.bfloat16):
+            e = compare_kernel(case, 0, 0.0, dt)
+            max_err = max(max_err, e)
+            print(f"check paged_decode {name} {str(dt)[6:]}: max abs err "
+                  f"{e:.3g}", flush=True)
 
     errs, n_checked = check_boundary_kernels()
     for name in BOUNDARY_KERNELS:
@@ -1274,20 +1572,66 @@ def main(argv) -> int:
     serve(cfg16, params16, [(p, 4) for p, _ in requests[:2]], "fused")
     runs["spike/bf16"] = serve_codec(cfg16, params16, requests, "spike",
                                      shadow=True)
+    del params16
+
+    # SNN mode: the block outputs of prefill and every MLP spike-coded
+    # too, ``lif_encode`` at those roundtrips under ``spike``
+    cfg_snn = cfg.replace(hnn_mode="snn")
+    params_snn = init_params(model_defs(cfg_snn), torch.Generator(
+        device="cuda").manual_seed(0), cfg.dtype, device="cuda")
+    # the init gives ``sp_snn2`` the thresholds of the MLP's output
+    # boundary, and a roundtrip of what that boundary decoded returns it
+    # unchanged: the SNN roundtrips get seeded thresholds of their own
+    gen_snn = torch.Generator(device="cuda").manual_seed(1)
+    for name in ("sp_snn", "sp_snn2"):
+        theta = params_snn["units"]["pos0"][name]["theta"]
+        theta.copy_(0.05 + 0.25 * torch.rand(theta.shape, generator=gen_snn,
+                                             device="cuda"))
+    for codec in ("spike_fused", "spike"):
+        runs[f"snn/{codec}"] = serve_codec(cfg_snn, params_snn, requests,
+                                           codec)
+        same = runs[f"snn/{codec}"][5] == runs[codec][5]
+        print(f"snn/{codec}: streams {'equal' if same else 'differ from'} "
+              "those of HNN mode", flush=True)
+    del params_snn
     print(json.dumps({"serve": {codec: {"tok_s": r[2], "median_step_ms": r[3],
                                         "streams_sha256": r[5]}
                                 for codec, r in runs.items()}}), flush=True)
 
-    ms, plain_ms, lib_ms, bound_ms, bound_by = time_kernel(s_case, cfg)
-    print(f"paged_decode at the serve shape: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by})", flush=True)
+    # speculative decoding with the n-gram drafter, K1 = SPEC_K + 1
+    spec_reqs = spec_requests()
+    spec = {}
+    for codec in SPEC_CODECS:
+        cfg_s = cfg.replace(hnn_mode="ann") if codec == "none" else cfg
+        spec[codec] = serve_spec(cfg_s, params, spec_reqs, codec)
+    print(json.dumps({"spec": spec}), flush=True)
+
+    # stochastic sampling: the distribution on the card, and seeded
+    # sampled serving beside the greedy run of the main path
+    tv = check_sampling_tv()
+    print(f"sampling on the card: TV distance over 4096 draws {tv} "
+          "(each < 0.06)", flush=True)
+    sampled = serve_sampled(cfg, params, requests, *runs["spike_fused"][6])
+    print(json.dumps({"sampling": {"tv": tv, **sampled}}), flush=True)
+
+    paged = []
+    for K1, arrays in ((1, s_case), (SPEC_K + 1, v_case)):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = time_kernel(arrays, cfg)
+        paged.append({"shape": list(arrays[0].shape), "K1": K1, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+        print(f"paged_decode at the serve shape, K1 = {K1}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+    paged[0]["launches"] = runs["spike_fused"][0]["paged_decode"]
+    paged[1]["launches"] = spec["spike_fused"]["launches"]["paged_decode"]
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": SOURCE["paged_decode"], "replaces": REPLACES["paged_decode"],
-        "launches": runs["spike_fused"][0]["paged_decode"],
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}]
+        "launches": paged[0]["launches"], "max_abs_err": max_err,
+        **{k: paged[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+        "by_shape": paged}]
 
     flush = torch.empty(96 * 2**20 // 4, dtype=torch.float32, device="cuda")
     kernels.extend(time_boundary_kernels(runs, errs, flush))

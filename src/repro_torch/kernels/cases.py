@@ -8,7 +8,8 @@ from a numpy ``RandomState`` or built exactly:
 
 * paged decode: random pools and well-formed compacted lists (distinct
   pool rows, ascending positions) with each slot's queries at its write
-  frontier;
+  frontier, K1 = 1 to 4 queries a slot (``verify_mha_k1_4`` is the
+  speculative verify step's serve shape);
 * ``lif_encode``: random activations, thresholds and scales; drives
   that land on and next to a half-integer tick count (where the IF
   encoder and the closed form part); zeros, -0.0, saturation and zero
@@ -77,6 +78,11 @@ CASES = {
                        psz=8, ppc=16, n_live=16), 0, 0.0, ()),
     "minus_one_tail": (dict(seed=7, B=4, K1=1, Hq=4, Hkv=4, dh=16,
                             P_loc=32, psz=8, ppc=16, n_live=6), 0, 0.0, ()),
+    # the speculative verify step's serve shape: four slots of mixed
+    # lengths, K1 = spec_k + 1 = 4 queries each, the full-width model's
+    # 16 MHA heads of 64 over pages of 16
+    "verify_mha_k1_4": (dict(seed=8, B=4, K1=4, Hq=16, Hkv=16, dh=64,
+                             P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
 }
 
 

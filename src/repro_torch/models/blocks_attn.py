@@ -6,12 +6,17 @@ reduce-scatter or psum out of it) still runs its codec here through the
 world-size-1 collectives of ``core.boundary``, so the activations the
 blocks see are the reference's.
 
-Decode attends over the serving engine's shared KV page pool: new K/V
+Decode (one token per slot) and verify (K1 = spec_k + 1 tokens per
+slot) attend over the serving engine's shared KV page pool: new K/V
 rows are written through the block table (``_paged_kv_write``) and the
 step attends either through the paged-decode kernel over the compacted
 page lists (the fused walk) or by gathering the full block table
 (``_paged_kv_gather``, the reference walk).  Unlike the reference's
 functional updates, pool writes happen in place.
+
+In SNN mode (``hnn_mode="snn"``) the block outputs of prefill and of
+every MLP are spike-coded too (``_maybe_snn``).  The decode and verify
+attention blocks apply no such roundtrip, as in the reference.
 """
 from __future__ import annotations
 
@@ -71,6 +76,8 @@ def attn_defs(cfg, tp=1):
                           init="zeros")
     if cfg.post_norm:
         defs["post_ln"] = pdef(D, init="zeros")
+    if cfg.hnn_mode == "snn":
+        defs["sp_snn"] = spike_pdefs(D)
     return defs
 
 
@@ -87,6 +94,8 @@ def mlp_defs(cfg, tp=1):
     }
     if cfg.post_norm:
         defs["post_ln2"] = pdef(D, init="zeros")
+    if cfg.hnn_mode == "snn":
+        defs["sp_snn2"] = spike_pdefs(D)
     return defs
 
 
@@ -104,9 +113,12 @@ def _consumers(ctx: Context, p, *names):
     return tuple(p[n] for n in names) if ctx.count_matmul_shadow else ()
 
 
-def _check_mode(cfg):
-    if cfg.hnn_mode == "snn":
-        raise NotImplementedError("hnn_mode='snn': not ported yet")
+def _maybe_snn(h, p_snn, ctx: Context):
+    """SNN mode: intra-chip activations are spike-coded too (a local
+    encode -> decode roundtrip); nothing under codec ``none``."""
+    if ctx.cfg.hnn_mode != "snn" or ctx.codec.mode == "none":
+        return h
+    return boundary._local_roundtrip(h, p_snn, ctx.codec)
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +130,6 @@ def attn_fwd(p, x, ctx: Context, aux, kind="attn"):
     """x [B, S, D] -> (x', cache {k, v} [B, S, Hkv, dh] in prefill mode,
     else None)."""
     cfg = ctx.cfg
-    _check_mode(cfg)
     d = attn_dims(cfg)
     dh = d["dh"]
     h = common.norm(x, p["ln"], cfg.norm)
@@ -144,6 +155,7 @@ def attn_fwd(p, x, ctx: Context, aux, kind="attn"):
         cap=cfg.attn_softcap, q_chunk=min(512, S), kv_chunk=min(512, S))
     part = out.reshape(B, S, d["Hq"] * dh) @ p["wo"]
     y = boundary.coded_psum_scatter(part, p["sp_out"], ctx.codec, axis=1)
+    y = _maybe_snn(y, p.get("sp_snn"), ctx)
     if cfg.post_norm:
         y = common.norm(y, p["post_ln"], cfg.norm)
     cache = {"k": k, "v": v} if ctx.mode == "prefill" else None
@@ -152,7 +164,6 @@ def attn_fwd(p, x, ctx: Context, aux, kind="attn"):
 
 def mlp_fwd(p, x, ctx: Context):
     cfg = ctx.cfg
-    _check_mode(cfg)
     h = common.norm(x, p["ln2"], cfg.norm)
     if ctx.mode == "decode":
         # tokens replicated: roundtrip in, spike-accumulated psum out
@@ -167,6 +178,7 @@ def mlp_fwd(p, x, ctx: Context):
         hh = common.act_fn(xg @ p["w1"], cfg.act) * (xg @ p["w3"])
         y = boundary.coded_psum_scatter(hh @ p["w2"], p["sp_out2"],
                                         ctx.codec, axis=1)
+    y = _maybe_snn(y, p.get("sp_snn2"), ctx)
     if cfg.post_norm:
         y = common.norm(y, p["post_ln2"], cfg.norm)
     return x + y
@@ -274,21 +286,25 @@ def _paged_attn_combined(q, cache, bt, page_list, qpos, ctx: Context,
 
 
 # ---------------------------------------------------------------------------
-# forward: decode (one token per slot over the paged pool)
+# forward: decode and speculative verify over the paged pool
 # ---------------------------------------------------------------------------
 
 
-def attn_decode_fwd(p, x, cache, pos, ctx: Context, aux, kind="attn"):
-    """x [B, 1, D]; pos [B] per-slot positions; cache {k, v} [P_loc,
-    psz, Hkv, dh] — the pool — written through ``aux["block_table"]``.
-    ``aux["page_list"]`` selects the kernel walk; ``aux["kv_write"]``
-    may carry precomputed ``paged_write_targets``.  Returns (x', cache).
-    """
+def attn_verify_fwd(p, x, cache, qpos, ctx: Context, aux, kind="attn"):
+    """Batched K1-token step: x [B, K1, D] — per slot the last committed
+    token followed by K1 - 1 drafts (a decode step is K1 = 1); qpos
+    [B, K1] the queries' absolute positions (a slot's base position plus
+    0..K1-1); cache {k, v} [P_loc, psz, Hkv, dh] — the pool — written
+    through ``aux["block_table"]``.  ``aux["page_list"]``
+    selects the kernel walk; ``aux["kv_write"]`` may carry precomputed
+    ``paged_write_targets``.  KV for all K1 positions lands in the pool
+    before attention, so a rejected draft's rows stay behind the
+    committed position (never attended) until the next step overwrites
+    them.  Returns (x', cache)."""
     cfg = ctx.cfg
-    _check_mode(cfg)
     d = attn_dims(cfg)
     dh = d["dh"]
-    B = x.shape[0]
+    B, K1, _ = x.shape
     bt = aux.get("block_table")
     if bt is None:
         raise NotImplementedError(
@@ -304,19 +320,17 @@ def attn_decode_fwd(p, x, cache, pos, ctx: Context, aux, kind="attn"):
         q = q + p["bq"]
         k_new = k_new + p["bk"]
         v_new = v_new + p["bv"]
-    q = q.reshape(B, 1, d["Hq"], dh)
-    k_new = k_new.reshape(B, 1, d["Hkv"], dh)
-    v_new = v_new.reshape(B, 1, d["Hkv"], dh)
-    positions = pos[:, None]
-    q = _rope(cfg, q, positions)
-    k_new = _rope(cfg, k_new, positions)
-    cache = _paged_kv_write(cache, bt, positions, k_new, v_new,
+    q = _rope(cfg, q.reshape(B, K1, d["Hq"], dh), qpos)
+    k_new = _rope(cfg, k_new.reshape(B, K1, d["Hkv"], dh), qpos)
+    v_new = v_new.reshape(B, K1, d["Hkv"], dh)
+    cache = _paged_kv_write(cache, bt, qpos, k_new, v_new,
                             aux.get("kv_write"))
     window = cfg.window if kind == "local" else 0
-    o = _paged_attn_combined(q, cache, bt, aux.get("page_list"), positions,
-                             ctx, window, cfg.attn_softcap)[:, 0]
-    part = o.reshape(B, 1, d["Hq"] * dh).to(x.dtype) @ p["wo"]
+    o = _paged_attn_combined(q, cache, bt, aux.get("page_list"), qpos, ctx,
+                             window, cfg.attn_softcap)
+    part = o.reshape(B, K1, d["Hq"] * dh).to(x.dtype) @ p["wo"]
     y = boundary.coded_psum(part, p["sp_out"], ctx.codec)
     if cfg.post_norm:
         y = common.norm(y, p["post_ln"], cfg.norm)
     return x + y, cache
+

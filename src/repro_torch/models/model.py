@@ -9,6 +9,8 @@ passes loop over units (the reference scans them).
                     (or ``last_pos``) position + the prompt's KV
   forward_decode  : one token per slot over the serving engine's paged
                     KV pool -> next-token logits (pool updated in place)
+  forward_verify  : K1 = spec_k + 1 tokens per slot over the same pool
+                    -> logits at every position (speculative decoding)
 """
 from __future__ import annotations
 
@@ -119,6 +121,32 @@ def forward_prefill(params, tokens, ctx: Context, last_pos=None):
     return logits, caches
 
 
+def _forward_paged(params, cache, tokens, qpos, ctx: Context, aux_extra):
+    """K1 tokens per slot over the paged KV pool: tokens [B, K1] int at
+    absolute positions qpos [B, K1] -> logits [B, K1, V] f32.  The new
+    K/V rows are written into the pool in place."""
+    cfg = ctx.cfg
+    ctx = ctx.with_(mode="decode")
+    aux = dict(aux_extra or {})
+    x = embed_tokens(params, tokens).to(cfg.dtype)
+    kv0 = cache["pos0"]["kv"]["k"]
+    aux["kv_write"] = blocks_attn.paged_write_targets(
+        aux["block_table"], qpos, kv0.shape[1], kv0.shape[2])
+    for u in range(cfg.n_units):
+        unit_p = unit_slice(params["units"], u)
+        for i, kind in enumerate(cfg.pattern):
+            kv = cache[f"pos{i}"]["kv"]
+            kv_u = {"k": kv["k"][u], "v": kv["v"][u]}
+            x, _ = blocks_attn.attn_verify_fwd(unit_p[f"pos{i}"], x, kv_u,
+                                               qpos, ctx, aux, kind=kind)
+            x = blocks_attn.mlp_fwd(unit_p[f"pos{i}"], x, ctx)
+    h = common.norm(x, params["final_ln"], cfg.norm)
+    logits = (h @ _head_w(params, cfg)).to(F32)
+    if cfg.final_softcap:
+        logits = common.softcap(logits, cfg.final_softcap)
+    return logits
+
+
 def forward_decode(params, cache, token, pos, ctx: Context, aux_extra=None):
     """One decode step over the paged KV pool.
 
@@ -129,25 +157,35 @@ def forward_decode(params, cache, token, pos, ctx: Context, aux_extra=None):
     are written into the pool in place.  Returns (logits [B, V] f32,
     cache).
     """
-    cfg = ctx.cfg
-    ctx = ctx.with_(mode="decode")
-    aux = dict(aux_extra or {})
     B = token.shape[0]
     pos = pos.reshape(-1).expand(B)
-    x = embed_tokens(params, token)[:, None, :].to(cfg.dtype)
-    kv0 = cache["pos0"]["kv"]["k"]
-    aux["kv_write"] = blocks_attn.paged_write_targets(
-        aux["block_table"], pos[:, None], kv0.shape[1], kv0.shape[2])
-    for u in range(cfg.n_units):
-        unit_p = unit_slice(params["units"], u)
-        for i, kind in enumerate(cfg.pattern):
-            kv = cache[f"pos{i}"]["kv"]
-            kv_u = {"k": kv["k"][u], "v": kv["v"][u]}
-            x, _ = blocks_attn.attn_decode_fwd(unit_p[f"pos{i}"], x, kv_u,
-                                               pos, ctx, aux, kind=kind)
-            x = blocks_attn.mlp_fwd(unit_p[f"pos{i}"], x, ctx)
-    h = common.norm(x, params["final_ln"], cfg.norm)
-    logits = (h[:, 0] @ _head_w(params, cfg)).to(F32)
-    if cfg.final_softcap:
-        logits = common.softcap(logits, cfg.final_softcap)
-    return logits, cache
+    logits = _forward_paged(params, cache, token[:, None], pos[:, None], ctx,
+                            aux_extra)
+    return logits[:, 0], cache
+
+
+def forward_verify(params, cache, tokens, pos, ctx: Context, aux_extra=None,
+                   return_hidden=False):
+    """Batched speculative-verify step: score K1 = spec_k + 1 positions of
+    every slot in one forward — the decode-boundary traffic of K1 steps
+    through one set of coded boundaries.
+
+    tokens [B, K1] int — per slot the last committed token followed by
+    spec_k drafts; pos [B] the base position of each slot's first token.
+    KV for position pos + j is written for every j through
+    ``aux_extra["block_table"]`` (the scheduler must have mapped pages
+    covering pos..pos+K1-1); acceptance and the page-exact rollback of
+    rejected positions are the scheduler's.  ``aux_extra`` is that of
+    ``forward_decode``.  Returns (logits [B, K1, V] f32, cache);
+    logits[:, j] condition on tokens[:, :j+1].  ``return_hidden`` (the
+    final hidden the learned draft heads read) is not ported.
+    """
+    if return_hidden:
+        raise NotImplementedError(
+            "forward_verify(return_hidden=True): the learned draft heads "
+            "are not ported yet")
+    B, K1 = tokens.shape
+    pos = pos.reshape(-1).expand(B)
+    qpos = pos[:, None] + torch.arange(K1, dtype=pos.dtype,
+                                       device=pos.device)[None, :]
+    return _forward_paged(params, cache, tokens, qpos, ctx, aux_extra), cache

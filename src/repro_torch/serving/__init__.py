@@ -1,8 +1,9 @@
-"""Batched serving over a paged KV pool: the sync greedy slice.
+"""Batched serving over a paged KV pool: the synchronous slice.
 
-``ServingEngine`` (continuous batching, block-table paging, greedy
-decode through the paged-decode kernel), ``EngineConfig``, ``Request``
-and the typed error family of ``serving.errors``.
+``ServingEngine`` (continuous batching, block-table paging, decode and
+speculative verify through the paged-decode kernel, greedy or sampled),
+``EngineConfig``, ``Request`` and the typed error family of
+``serving.errors``.
 """
 from .engine import (EngineConfig, Request, ServingEngine,  # noqa: F401
                      resolve_device)

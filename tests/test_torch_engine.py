@@ -117,14 +117,18 @@ def test_engine_eos_retires_early():
 
 def test_engine_config_limits():
     jm = MODELS["none"]
-    for kw in ({"spec_k": 1}, {"async_depth": 1}, {"top_k": 4},
-               {"disagg": True}, {"attn_kernel": "dense"}):
+    for kw in ({"spec_k": 1, "drafter": "heads"}, {"async_depth": 1},
+               {"top_k": -1}, {"top_p": 1.5}, {"disagg": True},
+               {"attn_kernel": "dense"}):
         with pytest.raises(EngineConfigError):
             ServingEngine(jm.tcfg, jm.tparams, EngineConfig(**kw),
                           device="cpu")
-    eng = ServingEngine(jm.tcfg, jm.tparams, EngineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(rid=0, prompt=[1, 2], temperature=0.7))
+    # sampling knobs and the n-gram spec path are honoured
+    eng = ServingEngine(jm.tcfg, jm.tparams, EngineConfig(
+        max_seq=32, top_k=4, top_p=0.9, seed=3, spec_k=1), device="cpu")
+    out = eng.run([Request(rid=0, prompt=[1, 2], max_new_tokens=3,
+                           temperature=0.7)])
+    assert len(out[0]) == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ServingEngine(jm.tcfg, jm.tparams, EngineConfig())

@@ -46,6 +46,13 @@ no JAX, so it collects where only PyTorch is installed.
   ``spike`` with the count matmul shadow on, ``count_matmul`` runs five
   times per layer per decode step and prefill and the streams equal
   those served without it.
+* Paged decode at the speculative verify step's serve shape (K1 = 4,
+  16 heads of 64, an allocator's lists) against its plain version.
+* Speculative decoding with the n-gram drafter on the card: launch
+  counts per verify step, every page free, and in ANN mode the
+  ``spec_k=0`` streams under the margin rule.  Sampled serving
+  (temperature, top-k, top-p) repeats under one seed, and its greedy
+  requests keep the greedy streams.
 """
 import numpy as np
 import pytest
@@ -164,14 +171,17 @@ def test_count_matmul_repeats_bit_for_bit_on_card(M, N):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("K1", [1, 4])
 @pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n_live", [6, 16])
-def test_paged_decode_serve_shape_on_card(n_live, pool_dtype):
+def test_paged_decode_serve_shape_on_card(n_live, pool_dtype, K1):
     """The serve shape (16 heads of 64, pages of 16, 16 list entries a
-    slot): six live pages before a -1 tail, or every entry live; against
-    the plain version, and bit for bit on a second launch."""
+    slot), a decode step (K1 = 1) or a speculative verify step (K1 = 4):
+    six live pages before a -1 tail, or every entry live; against the
+    plain version, wire off and on, and bit for bit on a second
+    launch."""
     _require_cuda()
-    arrays = rand_case(seed=n_live, B=4, K1=1, Hq=16, Hkv=16, dh=64,
+    arrays = rand_case(seed=n_live, B=4, K1=K1, Hq=16, Hkv=16, dh=64,
                        P_loc=64, psz=16, ppc=16, n_live=n_live)
     ts = to_tensors(arrays, "cuda", getattr(torch, pool_dtype))
     o, lse = ops.paged_flash_decode(*ts)
@@ -181,6 +191,9 @@ def test_paged_decode_serve_shape_on_card(n_live, pool_dtype):
     o2, lse2 = ops.paged_flash_decode(*ts)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     w, s, lse_w = ops.paged_flash_decode(*ts, encode_wire=True)
+    pw, ps, _ = paged_decode_plain(*ts, encode_wire=True)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=0.0)
+    assert int((w.int() - pw.int()).abs().max()) <= 1
     w2, s2, lse_w2 = ops.paged_flash_decode(*ts, encode_wire=True)
     assert torch.equal(w, w2) and torch.equal(s, s2)
     assert torch.equal(lse_w, lse) and torch.equal(lse_w2, lse)
@@ -533,3 +546,95 @@ def test_spike_unpack4_decode_is_one_launch_on_card(dtype):
         want = TS.decode(TS.wire_u8_to_counts(TS.unpack4(packed), cfg.T, dt),
                          p, cfg, dt)
         assert torch.equal(got, want)
+
+
+def _reduced_on_card(seed, **overrides):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config("qwen1.5-0.5b")).replace(dtype=torch.float32,
+                                                      **overrides)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+
+
+def _cyclic_requests(seed, n=6, new=12):
+    rng = np.random.RandomState(seed)
+    return [((rng.randint(0, 256, max(L // 4, 1)).tolist() * L)[:L], new)
+            for L in rng.randint(4, 40, n).tolist()]
+
+
+@pytest.mark.parametrize("codec", ["none", "spike", "spike_pack4"])
+def test_engine_on_card_spec_matches_vanilla(codec):
+    """Speculative decoding with the n-gram drafter (spec_k = 3) on the
+    card, ANN mode under ``none``: one paged-decode launch per layer and
+    verify step, the boundary kernels as per decode step, every page
+    free at the end, and under ``none`` the ``spec_k=0`` streams under
+    the margin rule (in HNN mode a verify step's [B*K1, D] matmuls may
+    round apart from a decode step's, and a spike count with them)."""
+    _require_cuda()
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    hnn = "ann" if codec == "none" else "hnn"
+    cfg, params = _reduced_on_card(4, codec=codec, hnn_mode=hnn)
+    reqs = _cyclic_requests(4)
+    runs = {}
+    for k in (0, 3):
+        ops.reset_launch_counts()
+        eng = ServingEngine(cfg, params, EngineConfig(
+            num_slots=3, max_seq=64, page_size=8, spec_k=k))
+        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                       for i, (p, m) in enumerate(reqs)])
+        n = ops.launch_counts()
+        L, steps, pre = cfg.n_layers, eng.decode_steps, eng.prefills
+        assert n["paged_decode"] == L * steps > 0
+        assert n["lif_encode"] == (4 * L * (steps + pre)
+                                   if codec == "spike" else 0)
+        assert n["pack4"] == n["unpack4"] == (
+            L * (2 * steps + 4 * pre) if codec == "spike_pack4" else 0)
+        assert eng.cache.allocator.pages_in_use == 0
+        assert all(len(out[i]) == m for i, (_, m) in enumerate(reqs))
+        runs[k] = out, eng
+    assert runs[3][1].spec_verifies > 0
+    if codec == "none":
+        (ref, eng0), (spec, _) = runs[0], runs[3]
+        for rid in ref:
+            for t, (a, b) in enumerate(zip(ref[rid], spec[rid])):
+                if eng0.margins[rid][t] <= MARGIN:
+                    break
+                assert a == b, (rid, t)
+
+
+def test_engine_on_card_sampled_runs_repeat():
+    """Temperature 0.8 with top-k 50 and top-p 0.9 beside greedy
+    requests, on the card: one seed serves the same streams twice, and
+    the greedy requests keep the streams of an all-greedy run."""
+    _require_cuda()
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg, params = _reduced_on_card(5, hnn_mode="ann", codec="none")
+    reqs = _cyclic_requests(5)
+    temps = [0.0 if i in (1, 4) else 0.8 for i in range(len(reqs))]
+
+    def serve(temps, spec_k=0):
+        eng = ServingEngine(cfg, params, EngineConfig(
+            num_slots=3, max_seq=64, page_size=8, top_k=50, top_p=0.9,
+            seed=1, spec_k=spec_k))
+        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=m,
+                               temperature=t)
+                       for i, ((p, m), t) in enumerate(zip(reqs, temps))])
+        assert eng.cache.allocator.pages_in_use == 0
+        return out, eng.margins
+
+    a, _ = serve(temps)
+    assert serve(temps)[0] == a
+    greedy, margins = serve([0.0] * len(reqs))
+    spec, _ = serve(temps, spec_k=3)
+    assert serve(temps, spec_k=3)[0] == spec
+    for rid, t in enumerate(temps):
+        if t > 0:
+            continue
+        for out in (a, spec):
+            for i, (x, y) in enumerate(zip(greedy[rid], out[rid])):
+                if margins[rid][i] <= MARGIN:
+                    break
+                assert x == y, (rid, i)

@@ -94,7 +94,7 @@ class JaxModel:
             codec=codec, dtype=getattr(jnp, dtype))
         self.tcfg = reduced(get_config(ARCH, hnn_mode=hnn)).replace(
             codec=codec, dtype=getattr(torch, dtype))
-        mesh = make_mesh((1, 1), ("data", "model"))
+        mesh = self.mesh = make_mesh((1, 1), ("data", "model"))
         plan = SP.make_plan(self.jcfg, ShapeCell("serve_decode", MAX_SEQ,
                                                  SLOTS, "decode"), mesh)
         plan_pre = SP.make_plan(self.jcfg, ShapeCell("serve_admit", PREFILL,
@@ -104,6 +104,7 @@ class JaxModel:
         self.tparams = params_from_jax(jax.tree.map(np.asarray, self.params),
                                        self.tcfg, device="cpu")
         _, pspecs, _ = TR.shard_params_specs(self.jcfg, plan)
+        self.pspecs = pspecs
         _, cspecs = SP.cache_specs(plan_pre)
         ctx_pre = SP.make_context(plan_pre, "prefill")
 
@@ -135,6 +136,40 @@ class JaxModel:
                           ispecs["clo"]),
                 out_specs=(P("data", "model"), ispecs["cache"]),
                 check_vma=False))
+
+        self._verify = {}
+
+    def jax_verify(self, kernel, cache, tokens, pos, alloc):
+        """The model-level ``forward_verify`` over the pool, as
+        ``make_engine_verify_step`` builds it but returning logits
+        [SLOTS, K1, V] (compiled on first use per walk and K1)."""
+        K1 = tokens.shape[1]
+        if (kernel, K1) not in self._verify:
+            plan = SP.make_plan(self.jcfg, SP.verify_shape_cell(
+                MAX_SEQ, SLOTS, K1 - 1), self.mesh)
+            _, ispecs = SP.serve_verify_input_specs(plan, K1 - 1, PSZ,
+                                                    NUM_PAGES)
+            ctx = SP.make_context(plan, "decode")
+
+            def step(params, cache, tokens, pos, bt, clp, clo,
+                     fused=kernel == "fused"):
+                aux = {"block_table": bt}
+                if fused:
+                    aux["page_list"] = (clp, clo)
+                return JM.forward_verify(params, cache, tokens, pos, ctx,
+                                         aux_extra=aux)
+            self._verify[kernel, K1] = jax.jit(jax.shard_map(
+                step, mesh=self.mesh,
+                in_specs=(self.pspecs, ispecs["cache"], ispecs["token"],
+                          ispecs["pos"], ispecs["bt"], ispecs["clp"],
+                          ispecs["clo"]),
+                out_specs=(P("data", None, "model"), ispecs["cache"]),
+                check_vma=False))
+        logits, cache = self._verify[kernel, K1](
+            self.params, cache, jnp.array(tokens, jnp.int32),
+            jnp.array(pos, jnp.int32), jnp.array(alloc.block_table),
+            jnp.array(alloc.page_list_loc), jnp.array(alloc.page_list_pos))
+        return np.asarray(logits), cache
 
     def jax_prefill(self, prompt):
         toks = np.zeros((1, PREFILL), np.int32)
@@ -245,7 +280,12 @@ def test_params_from_jax_rejects_bad_trees():
 
 @pytest.mark.parametrize("codec", [c for _, c in CODECS])
 def test_prefill_logits_and_kv(codec):
-    jm = MODELS[codec]
+    check_prefill(MODELS[codec])
+
+
+def check_prefill(jm):
+    """Prefill logits and prompt KV of right-padded prompts, port vs
+    JAX."""
     rng = np.random.RandomState(11)
     ctx = make_context(jm.tcfg)
     for P_len in (1, 13, PREFILL):
@@ -270,9 +310,13 @@ def test_teacher_forced_paged_decode(codec):
     """Three slots of mixed lengths share one pool; five decode steps
     feed fixed tokens (teacher forcing) through both attention walks on
     both sides."""
-    jm = MODELS[codec]
-    rng = np.random.RandomState(12)
-    ctx = make_context(jm.tcfg)
+    check_teacher_forced(MODELS[codec])
+
+
+def three_slots(jm, rng, ctx):
+    """Three prompts of mixed lengths (5, 19, PREFILL) prefilled and
+    inserted into one pool on both sides, once per walk.  Returns
+    (allocator, JAX pools, port caches, per-slot next positions)."""
     alloc = SlotAllocator(SLOTS, MAX_SEQ, PSZ, num_pages=NUM_PAGES)
     jcache = {k: jm.init_cache() for k in ("fused", "reference")}
     tcache = {k: PagedKVCache(jm.tcfg, num_slots=SLOTS, max_seq=MAX_SEQ,
@@ -294,6 +338,33 @@ def test_teacher_forced_paged_decode(codec):
                                   jnp.asarray(slot, jnp.int32),
                                   own_copy(alloc.block_table[slot]))
             tcache[k].insert(tpre, alloc.block_table[slot])
+    return alloc, jcache, tcache, pos
+
+
+def step_aux(alloc, kernel):
+    """The port's ``aux_extra`` of one step on a walk."""
+    aux = {"block_table": torch.tensor(alloc.block_table)}
+    if kernel == "fused":
+        aux["page_list"] = (torch.tensor(alloc.page_list_loc),
+                            torch.tensor(alloc.page_list_pos))
+    return aux
+
+
+def assert_pools_close(tcache, jcache):
+    for kernel in jcache:
+        for n in ("k", "v"):
+            np.testing.assert_allclose(
+                tcache[kernel].buffers["pos0"]["kv"][n].numpy(),
+                np.asarray(jcache[kernel]["pos0"]["kv"][n]),
+                atol=1e-5, rtol=1e-5)
+
+
+def check_teacher_forced(jm):
+    """Five teacher-forced decode steps of three slots over one pool,
+    both walks, port vs JAX: logits, then the pools."""
+    rng = np.random.RandomState(12)
+    ctx = make_context(jm.tcfg)
+    alloc, jcache, tcache, pos = three_slots(jm, rng, ctx)
     for _ in range(5):
         for s in range(SLOTS):
             alloc.ensure(s, int(pos[s]) + 1)
@@ -301,25 +372,16 @@ def test_teacher_forced_paged_decode(codec):
         for kernel in ("fused", "reference"):
             jl, jcache[kernel] = jm.jax_decode(kernel, jcache[kernel], token,
                                                pos, alloc)
-            aux = {"block_table": torch.tensor(alloc.block_table)}
-            if kernel == "fused":
-                aux["page_list"] = (torch.tensor(alloc.page_list_loc),
-                                    torch.tensor(alloc.page_list_pos))
             tl, _ = TM.forward_decode(jm.tparams, tcache[kernel].buffers,
                                       torch.tensor(token), torch.tensor(pos),
-                                      ctx, aux_extra=aux)
+                                      ctx, aux_extra=step_aux(alloc, kernel))
             np.testing.assert_allclose(tl.numpy(), jl, atol=LOGIT_TOL,
                                        rtol=0)
             for s in range(SLOTS):
                 if margin(jl[s]) > MARGIN:
                     assert int(np.argmax(jl[s])) == int(torch.argmax(tl[s]))
         pos += 1
-    for kernel in jcache:
-        for n in ("k", "v"):
-            np.testing.assert_allclose(
-                tcache[kernel].buffers["pos0"]["kv"][n].numpy(),
-                np.asarray(jcache[kernel]["pos0"]["kv"][n]),
-                atol=1e-5, rtol=1e-5)
+    assert_pools_close(tcache, jcache)
 
 
 # ---------------------------------------------------------------------------
@@ -454,37 +516,14 @@ def test_bf16_spike_teacher_forced_paged_decode():
     bs = bf16_spike()
     jm = bs.jm
     rng = np.random.RandomState(12)
-    alloc = SlotAllocator(SLOTS, MAX_SEQ, PSZ, num_pages=NUM_PAGES)
-    jcache = {k: jm.init_cache() for k in ("fused", "reference")}
-    tcache = {k: PagedKVCache(jm.tcfg, num_slots=SLOTS, max_seq=MAX_SEQ,
-                              page_size=PSZ, num_pages=NUM_PAGES,
-                              device="cpu")
-              for k in ("fused", "reference")}
-    pos = np.zeros(SLOTS, np.int32)
-    for P_len in (5, 19, PREFILL):
-        prompt = rng.randint(0, jm.tcfg.vocab, P_len).astype(np.int32)
-        _, jpre = jm.jax_prefill(prompt)
-        toks = np.zeros((1, PREFILL), np.int32)
-        toks[0, :P_len] = prompt
-        _, tpre = TM.forward_prefill(jm.tparams, torch.tensor(toks), bs.ctx,
-                                     last_pos=torch.tensor([P_len - 1]))
-        slot = alloc.alloc(P_len)
-        pos[slot] = P_len
-        for k in jcache:
-            jcache[k] = jm.insert(jcache[k], jpre,
-                                  jnp.asarray(slot, jnp.int32),
-                                  own_copy(alloc.block_table[slot]))
-            tcache[k].insert(tpre, alloc.block_table[slot])
+    alloc, jcache, tcache, pos = three_slots(jm, rng, bs.ctx)
     split = {k: False for k in jcache}
     for _ in range(5):
         for s in range(SLOTS):
             alloc.ensure(s, int(pos[s]) + 1)
         token = rng.randint(0, jm.tcfg.vocab, SLOTS).astype(np.int32)
         for kernel in ("fused", "reference"):
-            aux = {"block_table": torch.tensor(alloc.block_table)}
-            if kernel == "fused":
-                aux["page_list"] = (torch.tensor(alloc.page_list_loc),
-                                    torch.tensor(alloc.page_list_pos))
+            aux = step_aux(alloc, kernel)
             (jl, jcache[kernel]), (tl, _), jev, tev = bs.traced(
                 lambda: jm.jax_decode(kernel, jcache[kernel], token, pos,
                                       alloc),
