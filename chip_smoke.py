@@ -86,7 +86,21 @@ on failure:
    main path served twice at temperature 0.8 (top-k 50, top-p 0.9, two
    greedy requests) with one seed: the same streams twice, and the
    greedy requests' streams those of the greedy run;
-7. time the launch floor (a one-element ``zero_()``) and each kernel,
+7. the dispatch/commit pipeline: the main path's requests served at
+   ``async_depth=1`` beside ``async_depth=0`` under ``spike_fused``,
+   ``spike`` and ``spike_pack4``, plainly and with ``spec_k=3``: each
+   kernel launched as many times per step and prefill as in the
+   synchronous run, every pipelined decode dispatch free of host syncs
+   (``torch.cuda.set_sync_debug_mode("error")``), the streams equal to
+   the synchronous ones up to the split rule, every page free and the
+   limbo empty; tokens/s and the median step time of both depths;
+8. faults: a ``multitenant`` trace replayed on the logical clock at
+   ``async_depth=1`` under ``spike_fused``, fault-free and with a seeded
+   ``FaultInjector`` (preemption, replica loss, suspend): each stream
+   equal to the fault-free replay's (after a work-preserving resume, to
+   the continuation of its re-prefilled prompt), the ``SLOMonitor``'s
+   TTFT / TPOT / step percentiles and attainment on the host clock;
+9. time the launch floor (a one-element ``zero_()``) and each kernel,
    its plain version and its bound at the shapes the serve path gives
    it (``lif_encode`` in both compute types at the decode and the
    prefill rows, with and without the epilogue; ``pack4`` from both
@@ -101,7 +115,7 @@ on failure:
    f32, under ``spike_fused``, ``spike`` and ``spike_pack4``, with
    ``torch.profiler`` (after every timing); print one ``kernels`` JSON
    line (paged decode's entry at the decode and the verify shape);
-8. print ``{"ok": true, "device": {...}}`` as the last line.
+10. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result.  It imports nothing of JAX.
@@ -117,6 +131,7 @@ call.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -841,22 +856,41 @@ class WireTrace:
     before it are committed tokens; each row keeps those drafts, so that
     ``rows`` can drop the others once the streams are known.
     ``schedule`` lists every event's (wire kind, slot progress) in
-    order, so two runs can be held to one schedule."""
+    order, so two runs can be held to one schedule.  A prefill's values
+    are kept apart (``prefill_rows``): per admission, keyed by (rid,
+    committed tokens it re-prefilled, position), then by site, with its
+    attention output ("attention f32", no wire: a prefill attends
+    without the decode's int8 partial) where a decode step has its
+    attention wire."""
 
     def __init__(self):
         self.eng = None
         self._step = None
         self.schedule = []
         self._rows = {}          # (rid, t, site) -> (kind, pre, wire, drafts)
+        #: (rid, prior, position) -> {site: (kind, pre, wire)}
+        self.prefill_rows = collections.defaultdict(dict)
 
     def patches(self):
         from repro_torch.core import boundary, spike
+        from repro_torch.models import common
         from repro_torch.models import model as M
         return [_Patch(M, "forward_decode", self._forward),
                 _Patch(M, "forward_verify", self._forward),
+                _Patch(self.eng, "_admit", self._admit),
                 _Patch(spike, "encode", self._encode),
                 _Patch(spike, "encode_decode", self._encode_decode),
-                _Patch(boundary, "coded_combine_partials", self._combine)]
+                _Patch(boundary, "coded_combine_partials", self._combine),
+                _Patch(common, "flash_attention", self._attend)]
+
+    def _admit(self, orig, entry):
+        req, prior, _, prompt = self.eng._entry_parts(entry)
+        self._step = {"prefill": (req.rid, len(prior), len(prompt)),
+                      "site": 0}
+        try:
+            return orig(entry)
+        finally:
+            self._step = None
 
     def _forward(self, orig, params, cache, tokens, *a, **kw):
         feed = tokens.reshape(tokens.shape[0], -1).cpu().numpy()
@@ -869,10 +903,16 @@ class WireTrace:
 
     def _record(self, kind, pre, wire):
         step = self._step
-        if step is None:            # a prefill
+        if step is None:
             return
         site = step["site"]
         step["site"] += 1
+        if "prefill" in step:       # [1, prefill_len, C]
+            rid, prior, n = step["prefill"]
+            for j in range(n):
+                self.prefill_rows[rid, prior, j][site] = (
+                    kind, pre[0, j], None if wire is None else wire[0, j])
+            return
         self.schedule.append((kind, step["prog"]))
         for b, prog in enumerate(step["prog"]):
             if prog is None:
@@ -902,6 +942,12 @@ class WireTrace:
         self._record("attention wire", (wire.float() * scale).detach(),
                      wire.detach().clone())
         return orig(wire, scale, lse, *a, **kw)
+
+    def _attend(self, orig, *a, **kw):
+        out = orig(*a, **kw)
+        if self._step is not None and "prefill" in self._step:
+            self._record("attention f32", out.detach().float().clone(), None)
+        return out
 
     def rows(self, streams):
         """(rid, token index) -> {site: (kind, rounded-from, wire)} of the
@@ -956,27 +1002,128 @@ def rounding_splits(tr_a, tr_b, a, b, noise=1e-4):
     return cut, splits
 
 
-def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
-          shadow=False, temps=None, **knobs):
-    """One engine run; returns (streams, margins, engine, seconds,
-    decode-only step times).  ``hooks`` (``LaunchCheck``, ``WireTrace``)
-    watch the run; ``shadow`` turns the count matmul
-    shadow on (``Context.count_matmul_shadow``); ``temps`` are the
-    requests' temperatures (greedy without); ``knobs`` are further
-    ``EngineConfig`` fields (``spec_k``, ``top_k``, ``top_p``,
-    ``seed``)."""
-    from repro_torch.serving import EngineConfig, Request, ServingEngine
-    eng = ServingEngine(cfg, params, EngineConfig(
-        num_slots=4, max_seq=256, page_size=16, attn_kernel=kernel,
-        **knobs), device=device)
-    if shadow:
-        eng.ctx = eng.ctx.with_(count_matmul_shadow=True)
-    for rid, (prompt, new) in enumerate(requests):
-        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new,
-                           temperature=0.0 if temps is None else temps[rid]))
-    out, steps = {}, []
-    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (
-        lambda: None)
+def _first_split(rid, pairs, noise):
+    """The first (where, kind, relative gap of the values) of ``pairs``
+    [(where, rows_a, rows_b)], rows {site: (kind, rounded-from, wire)}
+    paired in site order, whose wires differ; raises unless that is a
+    rounding split (the limits of ``rounding_splits``).  A decode row's
+    int8 attention wire paired with a prefill row's attention output
+    must agree to half an int8 step of each head (the decode's rounding,
+    with 1% for float noise), and a spike count right after it may then
+    differ at any gap: its input carries that rounding, which the
+    prefill's does not.  None when every wire is equal."""
+    for where, ra, rb in pairs:
+        if not ra or len(ra) != len(rb):
+            raise AssertionError(f"faults: request {rid} {where}: the runs "
+                                 "traced different rows")
+        after_int8 = False
+        for (_, (kind, pre_a, wa)), (_, (kind_b, pre_b, wb)) in zip(
+                sorted(ra.items()), sorted(rb.items())):
+            if (kind, kind_b) == ("attention wire", "attention f32"):
+                half = pre_a.abs().amax(-1, keepdim=True) / 254
+                dev = float(((pre_b - pre_a).abs()
+                             / half.clamp(min=1e-30)).max())
+                if dev > 1.01:
+                    raise AssertionError(
+                        f"faults: request {rid} {where}: the attention "
+                        f"output is {dev:.3g} half int8 steps from the "
+                        "decode's attention wire")
+                after_int8 = True
+                continue
+            if kind != kind_b:
+                raise AssertionError(f"faults: request {rid} {where}: {kind} "
+                                     f"paired with {kind_b}")
+            if torch.equal(pre_a if wa is None else wa,
+                           pre_b if wb is None else wb):
+                after_int8 = False
+                continue
+            gap = float((pre_a - pre_b).abs().max()
+                        / pre_b.abs().max().clamp(min=1e-30))
+            if after_int8 and kind == "spike counts":
+                return where, "spike counts after the int8 attention", gap
+            limit = 1.0 / 127 + 1e-5 if kind == "attention wire" else noise
+            if gap > limit:
+                raise AssertionError(f"faults: request {rid} {where}: {kind} "
+                                     f"differ with values {gap:.3g} apart — "
+                                     "not a rounding split")
+            return where, kind, gap
+    return None
+
+
+def resume_splits(tr_a, tr_b, a, b, points, prompt_len, margins_a,
+                  noise=1e-4):
+    """Where each request of ``points`` (rid -> the stream indices at
+    which the run traced by ``tr_b`` re-admitted it with its committed
+    tokens as part of the prompt) first parts from the fault-free run
+    traced by ``tr_a``, and why.  Walked in causal order: the decode
+    rows of each token (``WireTrace.rows``) and, at a resume point r,
+    the re-admission's prefill: its prompt positions against the
+    fault-free prefill's, its positions of the r committed tokens
+    against the fault-free decode rows that produced those tokens (per
+    layer the same four spike boundaries and the attention between the
+    first two, in the same order; ``_first_split`` says how a prefill's
+    attention output is held to a decode's int8 wire).  Before the first
+    resume point every wire value must be bit-equal.  The first
+    difference must be a rounding split (``rounding_splits``'s limits),
+    or a token that parts with no wire split before it at a fault-free
+    margin of at most MARGIN.  Returns rid -> [token index, where
+    ("token t" or "re-prefill position p"), "spike counts" |
+    "attention wire" | "margin", the values' relative gap or the
+    margin]."""
+    rows_a, rows_b = tr_a.rows(a), tr_b.rows(b)
+    out = {}
+    for rid, pts in points.items():
+        sa, sb, P = a[rid], b[rid], prompt_len[rid]
+        n = min(len(sa), len(sb))
+        for t in range(1, n + 1):
+            if sa[t - 1] != sb[t - 1]:
+                d = t - 1
+                if d < pts[0]:
+                    raise AssertionError(f"faults: request {rid} parts at "
+                                         f"token {d}, before its resume "
+                                         f"point {pts[0]}")
+                if margins_a[rid][d] > MARGIN:
+                    raise AssertionError(
+                        f"faults: request {rid} token {d}: {sb[d]} != "
+                        f"{sa[d]} at margin {margins_a[rid][d]:.3g} with no "
+                        "wire split before it")
+                out[rid] = [d, f"token {d}", "margin", margins_a[rid][d]]
+                break
+            if t == n:
+                continue
+            if t in pts:            # token t came from a re-prefill
+                pre_b = tr_b.prefill_rows
+                pairs = [(f"re-prefill position {j}",
+                          tr_a.prefill_rows[rid, 0, j], pre_b[rid, t, j])
+                         for j in range(P)]
+                pairs += [(f"re-prefill position {P + i - 1}",
+                           rows_a.get((rid, i), {}), pre_b[rid, t, P + i - 1])
+                          for i in range(1, t + 1)]
+            else:
+                ra, rb = rows_a.get((rid, t), {}), rows_b.get((rid, t), {})
+                if ra.keys() != rb.keys():
+                    raise AssertionError(f"faults: request {rid} token {t}: "
+                                         "the runs traced different rows")
+                pairs = [(f"token {t}", ra, rb)]
+            split = _first_split(rid, pairs, noise)
+            if split is None:
+                continue
+            if t < pts[0]:
+                raise AssertionError(f"faults: request {rid} {split[0]}: a "
+                                     "wire value differs before the resume "
+                                     f"point {pts[0]}")
+            out[rid] = [t, *split]
+            break
+        else:
+            raise AssertionError(f"faults: request {rid} differs from the "
+                                 "fault-free run, but no split was found")
+    return out
+
+
+@contextlib.contextmanager
+def hooked(eng, hooks):
+    """``hooks`` (``LaunchCheck``, ``WireTrace``) watch ``eng`` while
+    active."""
     patches = []
     for h in hooks:
         h.eng = eng
@@ -984,6 +1131,40 @@ def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
     for p in patches:
         p.__enter__()
     try:
+        yield
+    finally:
+        for p in reversed(patches):
+            p.__exit__(None, None, None)
+
+
+def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
+          shadow=False, temps=None, no_sync_dispatch=False, **knobs):
+    """One engine run; returns (streams, margins, engine, seconds,
+    decode-only step times).  ``hooks`` (``LaunchCheck``, ``WireTrace``)
+    watch the run; ``shadow`` turns the count matmul
+    shadow on (``Context.count_matmul_shadow``); ``temps`` are the
+    requests' temperatures (greedy without); ``no_sync_dispatch`` runs
+    every dispatch under ``torch.cuda.set_sync_debug_mode("error")``, so
+    that a dispatch that makes the host wait for the card raises;
+    ``knobs`` are further ``EngineConfig`` fields (``spec_k``, ``top_k``,
+    ``top_p``, ``seed``, ``async_depth``).  Every page and slot must be
+    free, the limbo empty and every dispatched step committed at the
+    end."""
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    eng = ServingEngine(cfg, params, EngineConfig(
+        num_slots=4, max_seq=256, page_size=16, attn_kernel=kernel,
+        **knobs), device=device)
+    if shadow:
+        eng.ctx = eng.ctx.with_(count_matmul_shadow=True)
+    if no_sync_dispatch:
+        eng.dispatch = no_sync(eng.dispatch)
+    for rid, (prompt, new) in enumerate(requests):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new,
+                           temperature=0.0 if temps is None else temps[rid]))
+    out, steps = {}, []
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (
+        lambda: None)
+    with hooked(eng, hooks):
         sync()
         t0 = time.perf_counter()
         while not eng.idle:
@@ -995,13 +1176,35 @@ def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
                 steps.append(time.perf_counter() - t)
         sync()
         secs = time.perf_counter() - t0
-    finally:
-        for p in reversed(patches):
-            p.__exit__(None, None, None)
-    alloc = eng.cache.allocator
-    if alloc.pages_in_use or alloc.num_free != alloc.num_slots:
-        raise AssertionError("pages still mapped after the run")
+    check_drained(eng)
     return out, eng.margins, eng, secs, steps
+
+
+def check_drained(eng):
+    """Raise unless the engine is idle with every slot and page free,
+    the limbo empty and every dispatched step committed."""
+    alloc = eng.cache.allocator
+    if (not eng.idle or alloc.pages_in_use or alloc.pages_in_limbo
+            or alloc.num_free != alloc.num_slots
+            or alloc._dispatched != alloc._committed):
+        raise AssertionError(
+            f"not drained after the run: {alloc.pages_in_use} pages mapped, "
+            f"{alloc.pages_in_limbo} in limbo, {alloc.num_free} of "
+            f"{alloc.num_slots} slots free, {alloc._dispatched} steps "
+            f"dispatched and {alloc._committed} committed")
+
+
+def no_sync(dispatch):
+    """``dispatch`` run under ``torch.cuda.set_sync_debug_mode("error")``:
+    a synchronizing call inside it (a blocking copy, ``.item()``, a
+    ``nonzero``) raises instead of making the host wait."""
+    def run():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return run
 
 
 def check_streams(fused, ref, ref_margins, cut=None):
@@ -1361,6 +1564,288 @@ def serve_sampled(cfg, params, requests, greedy, greedy_margins):
     return out
 
 
+#: the async phase's codecs: the main path's and those whose coded
+#: boundaries run the boundary kernels
+ASYNC_CODECS = ("spike_fused", "spike", "spike_pack4")
+
+
+def serve_async(cfg, params, requests, codec):
+    """The dispatch/commit pipeline: the main path's requests served at
+    ``async_depth=1`` beside ``async_depth=0``, plainly and with
+    ``spec_k=3`` (n-gram), kernel walk.  Every run is counted with the
+    launch counts set to 0 just before it and read just after, and must
+    launch each kernel as many times per decode (or verify) step and
+    prefill as the synchronous run does (``expected_launches``); every
+    dispatch of a pipelined decode run runs under ``no_sync`` (a verify
+    dispatch joins the pipeline first: the n-gram drafter reads the
+    committed tokens).  The pipelined
+    streams must equal the synchronous ones up to each request's first
+    coded value that rounds the other way (both runs traced by
+    ``WireTrace`` when the streams differ) or a margin of 1e-4.  Returns
+    a summary dict."""
+    from repro_torch.kernels import ops
+    cfg_c = cfg.replace(codec=codec)
+    label = f"{cfg.hnn_mode}/{codec}"
+    out = {}
+    for spec_k in (0, SPEC_K):
+        runs = {}
+        for depth in (0, 1):
+            ops.reset_launch_counts()
+            streams, margins, eng, secs, steps = serve(
+                cfg_c, params, requests, "fused", async_depth=depth,
+                spec_k=spec_k, no_sync_dispatch=depth > 0 and not spec_k)
+            launches = ops.launch_counts()
+            want = expected_launches(codec, "fused", eng)
+            if launches != want or eng.decode_steps == 0:
+                raise AssertionError(
+                    f"async {label} depth {depth} spec_k {spec_k}: launches "
+                    f"{launches}, expected {want} for {eng.decode_steps} "
+                    f"steps and {eng.prefills} prefills")
+            n_tok = sum(len(v) for v in streams.values())
+            runs[depth] = {
+                "streams": streams, "margins": margins,
+                "tok_s": n_tok / secs,
+                "median_step_ms": 1e3 * float(np.median(steps)),
+                "decode_steps": eng.decode_steps, "prefills": eng.prefills,
+                "launches": launches}
+        sync, pipe = runs[0], runs[1]
+        cut = {}
+        if pipe["streams"] != sync["streams"]:
+            tr0, tr1 = WireTrace(), WireTrace()
+            s0 = serve(cfg_c, params, requests, "fused", spec_k=spec_k,
+                       hooks=(tr0,))[0]
+            s1 = serve(cfg_c, params, requests, "fused", spec_k=spec_k,
+                       async_depth=1, hooks=(tr1,))[0]
+            if (s0, s1) != (sync["streams"], pipe["streams"]):
+                raise AssertionError(f"async {label}: traced runs changed "
+                                     "their streams")
+            cut = rounding_splits(tr1, tr0, s1, s0)[0]
+        compared, by_split, by_margin = check_streams(
+            pipe["streams"], sync["streams"], sync["margins"], cut)
+        n_tok = sum(len(v) for v in sync["streams"].values())
+        key = "spec" if spec_k else "decode"
+        out[key] = {
+            **{f"depth{d}": {k: v for k, v in r.items()
+                             if k not in ("streams", "margins")}
+               for d, r in runs.items()},
+            "equal_streams": pipe["streams"] == sync["streams"],
+            "tokens_compared": compared, "cut_by_split": by_split,
+            "cut_by_margin": by_margin,
+            "streams_sha256": streams_digest(pipe["streams"])}
+        print(f"async {label} spec_k={spec_k}: async_depth=1 "
+              f"{pipe['tok_s']:.1f} tok/s, median step "
+              f"{pipe['median_step_ms']:.3f} ms, {pipe['decode_steps']} "
+              f"steps; async_depth=0 {sync['tok_s']:.1f} tok/s, median step "
+              f"{sync['median_step_ms']:.3f} ms, {sync['decode_steps']} "
+              f"steps ({card_line()}); launches per step and prefill those "
+              f"of the synchronous run ({pipe['launches']} against "
+              f"{sync['launches']}); "
+              + ("every pipelined dispatch free of host syncs; "
+                 if not spec_k else "")
+              + f"streams equal on {compared} of {n_tok} tokens "
+              f"({by_split} requests compared up to a rounding split, "
+              f"{by_margin} up to a margin <= {MARGIN}); no page mapped or "
+              "in limbo after the run", flush=True)
+    return out
+
+
+class PreemptKinds:
+    """Engine observer: preemptions counted by kind."""
+
+    def __init__(self):
+        self.kinds = collections.Counter()
+
+    def on_preempt(self, rid, kind):
+        self.kinds[kind] += 1
+
+
+#: the faults phase's fault plan: seeded preemption, replica loss and
+#: suspend, each of which strikes within the trace's first 15 ticks
+FAULT_PLAN = dict(seed=0, p_preempt=0.06, p_replica_loss=0.05,
+                  p_suspend=0.04, max_faults=8)
+
+
+def serve_faults(cfg, params, device="cuda"):
+    """A ``multitenant`` preset trace (1.5 s at 8 requests/s, prompts of
+    at most 120 tokens, at most 32 new, seed 0) replayed on the logical
+    clock (50 ticks a trace second) through the engine at
+    ``async_depth=1`` under ``spike_fused``, once fault-free and once
+    with a ``FaultInjector`` (``FAULT_PLAN``) and an ``SLOMonitor`` on
+    the host clock.  A preempted request restarts from scratch; a
+    suspended one is re-admitted with its committed tokens as part of
+    its prompt.  Each request's faulted stream must equal its fault-free
+    one, except after a work-preserving re-admission: the fault-free
+    replay and a second faulted one (which must serve the same streams
+    and re-admissions as the first) are traced with ``WireTrace``, and
+    ``resume_splits`` must find every parting at or after the first
+    resume point with every wire value bit-equal before it; the tokens
+    from each resume point on must also equal a fault-free serve of the
+    same re-prefilled prompt (a prefill multiplies other shapes than a
+    decode step, and a spike count may round apart).  Then the same
+    faulted replay under codec ``none`` (ANN mode, no wire to round)
+    must serve the fault-free replay's streams exactly, with at least one
+    work-preserving re-admission.  Launches per step and prefill as in a
+    fault-free run; every page free and the limbo empty at the end of
+    every replay.  Returns a summary dict."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (EngineConfig, FaultInjector, FaultPlan,
+                                     ServingEngine, SLOMonitor,
+                                     preset_trace, replay)
+    cfg_c = cfg.replace(codec="spike_fused")
+    cfg_n = cfg.replace(hnn_mode="ann", codec="none")
+    trace = preset_trace("multitenant", 1.5, seed=0, prefill_len=120,
+                         max_gen=32, load=8.0, vocab=cfg.vocab)
+
+    def engine(c):
+        return ServingEngine(c, params, EngineConfig(
+            num_slots=4, max_seq=256, page_size=16, async_depth=1),
+            device=device)
+
+    def fault_free(c, hooks=()):
+        eng = engine(c)
+        with hooked(eng, hooks):
+            streams = replay(eng, trace)
+        check_drained(eng)
+        return streams, eng
+
+    def faulted(c, hooks=(), monitor=None):
+        """One replay with ``FAULT_PLAN``'s injector.  Returns (streams,
+        engine, injector, preemptions by kind, rid -> prior tokens of
+        each admission, seconds)."""
+        eng = engine(c)
+        admits = collections.defaultdict(list)
+        admit = eng._admit
+
+        def logged_admit(entry):
+            req, prior = eng._entry_parts(entry)[:2]
+            admits[req.rid].append(list(prior))
+            return admit(entry)
+
+        eng._admit = logged_admit
+        kinds = PreemptKinds()
+        eng.observers.append(kinds)
+        injector = FaultInjector(FaultPlan(**FAULT_PLAN))
+        observers = (injector,) if monitor is None else (monitor, injector)
+        with hooked(eng, hooks):
+            t0 = time.perf_counter()
+            streams = replay(eng, trace, observers=observers)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        check_drained(eng)
+        return streams, eng, injector, kinds, dict(admits), secs
+
+    tr_ref, tr_got = WireTrace(), WireTrace()
+    ref, ref_eng = fault_free(cfg_c, [tr_ref])
+    monitor = SLOMonitor()
+    ops.reset_launch_counts()
+    got, eng, injector, kinds, admits, secs = faulted(cfg_c, monitor=monitor)
+    launches = ops.launch_counts()
+    want = expected_launches("spike_fused", "fused", eng)
+    if launches != want:
+        raise AssertionError(f"faults: launches {launches}, expected {want}")
+    if sorted(got) != sorted(ref):
+        raise AssertionError("faults: the faulted replay lost requests")
+    kinds_seen = dict(injector.injected)
+    if not all(kinds_seen.values()):
+        raise AssertionError(f"faults: not every fault kind struck "
+                             f"{kinds_seen}")
+    again, *_, admits_again, _ = faulted(cfg_c, [tr_got])
+    if again != got or admits_again != admits:
+        raise AssertionError("faults: a second faulted replay served other "
+                             "streams or re-admissions than the first")
+    # requests whose stream parts from the fault-free one: from their last
+    # admission from scratch on, each re-admission's prior tokens are a
+    # resume point
+    prompts = {tr.req.rid: (list(tr.req.prompt), tr.req.max_new_tokens)
+               for tr in trace.requests}
+    differ, conts = {}, []
+    compared = 0
+    for rid in sorted(ref, key=str):
+        a, b = ref[rid], got[rid]
+        if a == b:
+            compared += len(a)
+            continue
+        last = max(i for i, p in enumerate(admits[rid]) if not p)
+        points = sorted({len(p) for p in admits[rid][last:] if p})
+        if not points:
+            raise AssertionError(f"faults: request {rid} differs with no "
+                                 "work-preserving re-admission")
+        differ[rid] = points
+        prompt, new = prompts[rid]
+        for r in points:
+            conts.append((rid, r, (prompt + b[:r], new - r)))
+        compared += points[0]
+    splits = resume_splits(tr_ref, tr_got, ref, got, differ,
+                           {r: len(p) for r, (p, _) in prompts.items()},
+                           ref_eng.margins)
+    if conts:
+        cont = serve(cfg_c, params, [c[2] for c in conts], "fused",
+                     device=device)[0]
+        for k, (rid, r, _) in enumerate(conts):
+            points = differ[rid] + [len(got[rid])]
+            end = points[points.index(r) + 1]
+            if got[rid][r:end] != cont[k][:end - r]:
+                raise AssertionError(
+                    f"faults: request {rid} from resume point {r} differs "
+                    "from the continuation of its re-prefilled prompt")
+            compared += end - r
+    # no wire to round: the faulted replay serves the fault-free streams
+    ref_n = fault_free(cfg_n)[0]
+    got_n, _, inj_n, _, admits_n, _ = faulted(cfg_n)
+    resumes_n = sum(1 for v in admits_n.values() for p in v if p)
+    parted = sorted((rid for rid in ref_n if got_n.get(rid) != ref_n[rid]),
+                    key=str)
+    if parted or sorted(got_n) != sorted(ref_n) or not resumes_n:
+        raise AssertionError(f"faults under codec none: {len(parted)} "
+                             f"streams part from the fault-free replay's "
+                             f"({parted}), {resumes_n} work-preserving "
+                             "re-admissions")
+    rep = monitor.report()
+    out = {"card": card_line(), "requests": len(trace), "seconds": secs,
+           "decode_steps": eng.decode_steps, "prefills": eng.prefills,
+           "launches": launches, "injected": kinds_seen,
+           "preemptions": dict(kinds.kinds), "suspends": eng.suspends,
+           "streams_equal_fault_free": len(ref) - len(differ),
+           "resume_points_of_other_streams": {
+               str(r): p for r, p in differ.items()},
+           "splits": {str(r): s for r, s in splits.items()},
+           "tokens_compared": compared,
+           "none": {"injected": dict(inj_n.injected),
+                    "resumes": resumes_n,
+                    "streams_equal_fault_free": len(ref_n),
+                    "tokens": sum(map(len, ref_n.values()))},
+           "ttft_ms": rep["ttft_ms"], "tpot_ms": rep["tpot_ms"],
+           "step_us": rep["step_us"], "slo": rep["slo"],
+           "restarts": rep["requests"]["restarts"],
+           "tokens_per_s": rep["tokens_per_s"],
+           "peak_pages_in_limbo": rep["pool"]["peak_pages_in_limbo"]}
+    print(f"faults ({card_line()}): {len(trace)} requests of the multitenant "
+          f"trace at async_depth=1 in {secs:.2f} s, {eng.decode_steps} steps, "
+          f"{eng.prefills} prefills; injected {kinds_seen}, preemptions "
+          f"{dict(kinds.kinds)}, suspends {eng.suspends}, restarts "
+          f"{out['restarts']}; {out['streams_equal_fault_free']} of "
+          f"{len(ref)} streams equal the fault-free replay's, the others "
+          "part at or after a resume point "
+          f"({out['resume_points_of_other_streams']}) "
+          f"with every wire value bit-equal before it, first at "
+          f"{out['splits']} (token, why, gap), and equal the continuation "
+          f"of their re-prefilled prompts after it; a second faulted replay "
+          f"served the same streams; {compared} tokens compared; under "
+          f"codec none (injected {out['none']['injected']}, "
+          f"{resumes_n} work-preserving re-admissions) all {len(ref_n)} "
+          f"streams ({out['none']['tokens']} tokens) equal the fault-free "
+          f"replay's; TTFT p50/p99 "
+          f"{rep['ttft_ms']['p50']:.2f}/{rep['ttft_ms']['p99']:.2f} ms, "
+          f"TPOT p50/p99 {rep['tpot_ms']['p50']:.2f}/"
+          f"{rep['tpot_ms']['p99']:.2f} ms, step p50/p99 "
+          f"{rep['step_us']['p50'] / 1e3:.2f}/"
+          f"{rep['step_us']['p99'] / 1e3:.2f} ms, attainment "
+          f"{rep['slo']['attainment']:.3f}; launches {launches}; no page "
+          "mapped or in limbo after any replay", flush=True)
+    return out
+
+
 def kernels_per_step(cfg, params, codec):
     """The device work of one decode step at a full batch, from
     ``torch.profiler``: four requests admitted and decoding, and one step
@@ -1613,6 +2098,13 @@ def main(argv) -> int:
           "(each < 0.06)", flush=True)
     sampled = serve_sampled(cfg, params, requests, *runs["spike_fused"][6])
     print(json.dumps({"sampling": {"tv": tv, **sampled}}), flush=True)
+
+    # the dispatch/commit pipeline (async_depth=1) beside the synchronous
+    # loop, then a fault-injected trace replay through it
+    async_runs = {codec: serve_async(cfg, params, requests, codec)
+                  for codec in ASYNC_CODECS}
+    print(json.dumps({"async": async_runs}), flush=True)
+    print(json.dumps({"faults": serve_faults(cfg, params)}), flush=True)
 
     paged = []
     for K1, arrays in ((1, s_case), (SPEC_K + 1, v_case)):

@@ -190,39 +190,41 @@ def mlp_fwd(p, x, ctx: Context):
 
 
 def paged_write_targets(bt, qpos, pages_local, page_size):
-    """Valid (slot, query) -> (pool row, offset) write targets.
+    """The (pool row, offset) each (slot, query) row writes, with no
+    host sync.
 
     bt [B, PPS] int32 global page ids (-1 unmapped); qpos [B, K1]
     absolute write positions.  A write whose page is unmapped, not
     resident in this pool, or whose position lies past the block table
     is dropped, never clipped into a live page — so an evicted slot (bt
     row all -1) cannot corrupt a recycled page.  Torch has no dropping
-    scatter, so the drop is an explicit mask; the targets are the same
-    for every layer of a step, so callers compute them once (one
-    device-to-host sync per step for the mask's size).  Returns index
-    tensors ``(b, j, loc, off)`` of the kept writes.
+    scatter, and selecting the kept rows (``nonzero``) would make the
+    host wait for the device, so a dropped row writes into the sink:
+    pool row ``pages_local``, one past the mapped pages, which no block
+    table maps and no read touches.  The targets are the same for every
+    layer of a step, so callers compute them once.  Returns ``(loc,
+    off)``, the pool row and offset of each of the B * K1 rows.
     """
     PPS = bt.shape[1]
     pj = torch.div(qpos, page_size, rounding_mode="floor")
-    oj = qpos - pj * page_size
     g = torch.gather(bt, 1, pj.clamp(0, PPS - 1).long())
-    loc, ok = pool_local_pages(g, 0, pages_local)
-    ok = ok & (pj < PPS)
-    b, j = torch.nonzero(ok, as_tuple=True)
-    return b, j, loc[b, j].long(), oj[b, j].long()
+    loc, _ = pool_local_pages(g, 0, pages_local)   # pages_local if not ok
+    loc = torch.where(pj < PPS, loc, pages_local)
+    return loc.reshape(-1).long(), (qpos - pj * page_size).reshape(-1).long()
 
 
 def _paged_kv_write(cache, bt, qpos, k_new, v_new, targets=None):
     """Write new KV rows [B, K1, Hkv, dh] through the block table into the
-    pool {k, v} [P_loc, psz, Hkv, dh], in place.  Valid (page, offset)
-    targets are unique (a slot's positions are distinct and live slots'
-    pages are disjoint), so the writes need no ordering."""
+    pool {k, v} [P_loc + 1, psz, Hkv, dh] (the last row the sink), in
+    place.  Targets outside the sink are unique (a slot's positions are
+    distinct and live slots' pages are disjoint), so the writes need no
+    ordering."""
     ck, cv = cache["k"], cache["v"]
     if targets is None:
-        targets = paged_write_targets(bt, qpos, ck.shape[0], ck.shape[1])
-    b, j, loc, off = targets
-    ck[loc, off] = k_new[b, j].to(ck.dtype)
-    cv[loc, off] = v_new[b, j].to(cv.dtype)
+        targets = paged_write_targets(bt, qpos, ck.shape[0] - 1, ck.shape[1])
+    loc, off = targets
+    ck[loc, off] = k_new.reshape(-1, *k_new.shape[2:]).to(ck.dtype)
+    cv[loc, off] = v_new.reshape(-1, *v_new.shape[2:]).to(cv.dtype)
     return cache
 
 
@@ -294,10 +296,10 @@ def attn_verify_fwd(p, x, cache, qpos, ctx: Context, aux, kind="attn"):
     """Batched K1-token step: x [B, K1, D] — per slot the last committed
     token followed by K1 - 1 drafts (a decode step is K1 = 1); qpos
     [B, K1] the queries' absolute positions (a slot's base position plus
-    0..K1-1); cache {k, v} [P_loc, psz, Hkv, dh] — the pool — written
-    through ``aux["block_table"]``.  ``aux["page_list"]``
-    selects the kernel walk; ``aux["kv_write"]`` may carry precomputed
-    ``paged_write_targets``.  KV for all K1 positions lands in the pool
+    0..K1-1); cache {k, v} [P_loc + 1, psz, Hkv, dh] — the pool and its
+    sink row — written through ``aux["block_table"]``.
+    ``aux["page_list"]`` selects the kernel walk; ``aux["kv_write"]``
+    may carry precomputed ``paged_write_targets``.  KV for all K1 positions lands in the pool
     before attention, so a rejected draft's rows stay behind the
     committed position (never attended) until the next step overwrites
     them.  Returns (x', cache)."""

@@ -67,9 +67,9 @@ def pool_local_pages(page_ids, pool_index, pages_local):
     Global page p lives on shard ``p // pages_local`` at row
     ``p % pages_local``.  Returns ``(loc, ok)``: where ``ok`` (mapped
     and resident here) ``loc`` is the local row; else ``loc`` is
-    ``pages_local`` — one past the end, which every writer masks out
-    explicitly (torch has no dropping scatter) and every reader
-    replaces by a fixed row under the ``ok`` mask.
+    ``pages_local`` — one past the end: the KV write's sink row (torch
+    has no dropping scatter), which every reader replaces by a fixed row
+    under the ``ok`` mask.
     """
     loc = page_ids - pool_index * pages_local
     ok = (page_ids >= 0) & (loc >= 0) & (loc < pages_local)

@@ -131,7 +131,7 @@ def _forward_paged(params, cache, tokens, qpos, ctx: Context, aux_extra):
     x = embed_tokens(params, tokens).to(cfg.dtype)
     kv0 = cache["pos0"]["kv"]["k"]
     aux["kv_write"] = blocks_attn.paged_write_targets(
-        aux["block_table"], qpos, kv0.shape[1], kv0.shape[2])
+        aux["block_table"], qpos, kv0.shape[1] - 1, kv0.shape[2])
     for u in range(cfg.n_units):
         unit_p = unit_slice(params["units"], u)
         for i, kind in enumerate(cfg.pattern):

@@ -30,6 +30,7 @@ import torch
 
 from ..models import blocks_attn
 from .errors import CacheOverflowError, PagePoolExhausted, SlotsExhausted
+from .staging import to_device
 
 
 def pages_per_slot(max_seq: int, page_size: int) -> int:
@@ -568,8 +569,10 @@ class PagedKVCache:
     """Device page pool + host ``SlotAllocator`` on one card.
 
     ``buffers`` is ``{"posI": {"kv": {"k", "v"}}}`` with pool leaves
-    ``[U, num_pages, page_size, Hkv, dh]`` in the config's dtype,
+    ``[U, num_pages + 1, page_size, Hkv, dh]`` in the config's dtype,
     allocated once and updated in place by inserts and decode steps.
+    Row ``num_pages`` is the sink that a step's dropped KV writes land
+    in (``blocks_attn.paged_write_targets``); no block table maps it.
     """
 
     def __init__(self, cfg, *, num_slots: int, max_seq: int,
@@ -580,7 +583,7 @@ class PagedKVCache:
         self.allocator = SlotAllocator(num_slots, max_seq, page_size,
                                        num_pages=num_pages)
         d = blocks_attn.attn_dims(cfg)
-        shape = (cfg.n_units, num_pages, page_size, d["Hkv"], d["dh"])
+        shape = (cfg.n_units, num_pages + 1, page_size, d["Hkv"], d["dh"])
         self.buffers = {
             f"pos{i}": {"kv": {n: torch.zeros(shape, dtype=cfg.dtype,
                                               device=self.device)
@@ -613,9 +616,8 @@ class PagedKVCache:
         rows = np.flatnonzero((pages >= 0) & (pages < self.num_pages))
         if rows.size == 0:
             return
-        ordinals = torch.tensor(rows, dtype=torch.long, device=self.device)
-        dst = torch.tensor(pages[rows], dtype=torch.long,
-                           device=self.device)
+        ordinals = to_device(rows, self.device, torch.long)
+        dst = to_device(pages[rows], self.device, torch.long)
         for name, pos in self.buffers.items():
             for n in ("k", "v"):
                 pool = pos["kv"][n]

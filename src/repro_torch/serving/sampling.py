@@ -26,6 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from .staging import to_device
+
 F32 = torch.float32
 
 
@@ -90,7 +92,7 @@ def sample(logits, temps, generator=None, cfg: SamplingConfig | None = None):
         return greedy
     if generator is None:
         raise ValueError("sample: stochastic rows need a generator")
-    t = torch.tensor(temps, device=logits.device)
+    t = to_device(temps, logits.device)
     lt = logits / torch.clamp(t, min=1e-6)[:, None]
     if cfg.top_k > 0:
         lt = _apply_top_k(lt, cfg.top_k)

@@ -117,7 +117,7 @@ def test_engine_eos_retires_early():
 
 def test_engine_config_limits():
     jm = MODELS["none"]
-    for kw in ({"spec_k": 1, "drafter": "heads"}, {"async_depth": 1},
+    for kw in ({"spec_k": 1, "drafter": "heads"}, {"async_depth": -1},
                {"top_k": -1}, {"top_p": 1.5}, {"disagg": True},
                {"attn_kernel": "dense"}):
         with pytest.raises(EngineConfigError):

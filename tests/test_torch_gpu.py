@@ -53,6 +53,13 @@ no JAX, so it collects where only PyTorch is installed.
   ``spec_k=0`` streams under the margin rule.  Sampled serving
   (temperature, top-k, top-p) repeats under one seed, and its greedy
   requests keep the greedy streams.
+* The dispatch/commit pipeline on the card: ``async_depth=1`` serves the
+  ``async_depth=0`` streams with the same launches per step and prefill,
+  every page free and the limbo empty; with the card held busy ahead of
+  each dispatch, a dispatch makes no synchronizing call (sync debug mode
+  "error") and returns before its step has run, garbage written into the
+  host feeds right after it changes nothing, and a commit reads its
+  tokens only once the step's event has been reached.
 """
 import numpy as np
 import pytest
@@ -638,3 +645,83 @@ def test_engine_on_card_sampled_runs_repeat():
                 if margins[rid][i] <= MARGIN:
                     break
                 assert x == y, (rid, i)
+
+
+def _drained(eng):
+    alloc = eng.cache.allocator
+    return (eng.idle and alloc.pages_in_use == 0 and alloc.pages_in_limbo == 0
+            and alloc._dispatched == alloc._committed
+            and alloc.num_free == alloc.num_slots)
+
+
+def _mixed_requests(seed, vocab, n=6, new=8):
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, L).tolist(), new)
+            for L in rng.randint(1, 60, n).tolist()]
+
+
+@pytest.mark.parametrize("codec", ["spike_fused", "spike", "spike_pack4"])
+def test_engine_on_card_async_matches_sync(codec):
+    _require_cuda()
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg, params = _reduced_on_card(6, codec=codec)
+    reqs = _mixed_requests(6, cfg.vocab)
+    runs = {}
+    for depth in (0, 1):
+        ops.reset_launch_counts()
+        eng = ServingEngine(cfg, params, EngineConfig(
+            num_slots=3, max_seq=64, page_size=8, async_depth=depth))
+        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
+                       for i, (p, m) in enumerate(reqs)])
+        n = ops.launch_counts()
+        L, steps, pre = cfg.n_layers, eng.decode_steps, eng.prefills
+        assert n["paged_decode"] == L * steps > 0
+        assert n["lif_encode"] == (4 * L * (steps + pre)
+                                   if codec == "spike" else 0)
+        assert n["pack4"] == n["unpack4"] == (
+            L * (2 * steps + 4 * pre) if codec == "spike_pack4" else 0)
+        assert _drained(eng)
+        runs[depth] = out, eng.margins
+    assert runs[1] == runs[0]
+
+
+def test_engine_on_card_commit_waits_for_its_event():
+    _require_cuda()
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg, params = _reduced_on_card(7)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(_mixed_requests(7, cfg.vocab))]
+    ecfg = dict(num_slots=3, max_seq=64, page_size=8)
+    ref = ServingEngine(cfg, params, EngineConfig(**ecfg)).run(reqs)
+    eng = ServingEngine(cfg, params, EngineConfig(**ecfg, async_depth=1))
+    eng.warmup(reqs[0].prompt)
+    for r in reqs:
+        eng.submit(r)
+    alloc = eng.cache.allocator
+    arrays = (eng._tokens, eng._pos, alloc.block_table, alloc.page_list_loc,
+              alloc.page_list_pos)
+    results, queued = {}, 0
+    while not eng.idle:
+        torch.cuda._sleep(20_000_000)       # the card stays busy a while
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launched = eng.dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if launched:
+            rec = eng._inflight[-1]
+            queued += not rec.result.event.query()
+            saved = [a.copy() for a in arrays]
+            for a in arrays:
+                a[...] = 3
+            torch.cuda._sleep(2_000_000)
+            for a, s in zip(arrays, saved):
+                a[...] = s
+        while len(eng._inflight) > (1 if launched else 0):
+            oldest = eng._inflight[0]
+            eng.commit()
+            assert oldest.result.event.query()
+        results.update((r.rid, o) for r, o in eng._retired)
+        eng._retired = []
+    assert results == ref
+    assert queued > 0 and _drained(eng)

@@ -351,10 +351,12 @@ def step_aux(alloc, kernel):
 
 
 def assert_pools_close(tcache, jcache):
+    """The port's pool pages equal JAX's (the port's last pool row is
+    the sink of dropped writes, which JAX has no counterpart of)."""
     for kernel in jcache:
         for n in ("k", "v"):
             np.testing.assert_allclose(
-                tcache[kernel].buffers["pos0"]["kv"][n].numpy(),
+                tcache[kernel].buffers["pos0"]["kv"][n][:, :NUM_PAGES].numpy(),
                 np.asarray(jcache[kernel]["pos0"]["kv"][n]),
                 atol=1e-5, rtol=1e-5)
 

@@ -266,7 +266,7 @@ def test_spec_eos_inside_an_accepted_run():
 def test_spec_engine_config():
     jm = MODELS["none"]
     for kw in ({"spec_k": -1}, {"spec_k": 2, "drafter": "heads"},
-               {"spec_k": 2, "async_depth": 1}, {"drafter": "medusa"}):
+               {"spec_k": 2, "async_depth": -1}, {"drafter": "medusa"}):
         with pytest.raises(EngineConfigError):
             ServingEngine(jm.tcfg, jm.tparams, EngineConfig(**kw),
                           device="cpu")
