@@ -10,8 +10,13 @@ on failure:
    ``nvcc`` (one process per source, in parallel) into
    ``build/repro_torch/``;
 3. hold each kernel against its plain PyTorch version on the card:
-   paged decode on the conformance cases of ``kernels/cases.py`` and
-   the serve shapes (Hq = Hkv = 16, dh = 64, page 16, K1 = 1 for a
+   paged decode on the conformance cases of ``kernels/cases.py`` (the
+   other registered configs' shapes among them: gemma2-2b's 8 heads on
+   4 kv heads of 256 with window 4096 and softcap 50 over lists that run
+   past the window, granite-20b's 48 heads on one kv head of 128,
+   qwen1.5-4b's 20 heads of 128, at K1 = 1 and 4, each also launched
+   twice for identical bits, with its launch plan printed) and the serve
+   shapes (Hq = Hkv = 16, dh = 64, page 16, K1 = 1 for a
    decode step and K1 = 4 for a verify step), f32 and bf16 pools, with
    and without the int8 wire epilogue (within 2e-5, the wire within one
    int8 step); ``lif_encode`` (in both of its compute
@@ -32,8 +37,9 @@ on failure:
    that of the plain version's); then paged decode and ``count_matmul``
    twice on the same inputs at their serve shapes, which must give the
    same bits;
-4. serve the full-width ``qwen1.5-0.5b`` (24 layers, d_model 1024, 16
-   heads of 64, d_ff 2816, vocab 151936; HNN mode; float32 weights from
+4. serve the full-width ``qwen1.5-0.5b`` (d_model 1024, 16 heads of 64,
+   d_ff 2816, vocab 151936) at L = ``N_LAYERS`` = 8 of its 24 layers
+   (phases 4-8; HNN mode; float32 weights from
    the port's seeded init) through ``ServingEngine``: eight requests of
    16-120 prompt tokens and 32 new tokens each on four slots, once per
    coded-boundary codec — ``spike_fused`` (the main path of the first
@@ -42,9 +48,9 @@ on failure:
    ``spike_pack4`` (``pack4_counts`` before and ``unpack4_decode`` after
    every coded exchange) and ``sparse_topk``.  For
    each codec the kernel walk's run is timed with every launch count set
-   to 0 just before it and read just after: paged decode must launch 24
-   times per decode step, ``lif_encode`` 4 x 24 times per decode step
-   and per prefill under ``spike``, ``pack4`` and ``unpack4`` 24 x (2
+   to 0 just before it and read just after: paged decode must launch L
+   times per decode step, ``lif_encode`` 4 x L times per decode step
+   and per prefill under ``spike``, ``pack4`` and ``unpack4`` L x (2
    per decode step + 4 per prefill) under ``spike_pack4``, and every
    page must be free at the end.  In the checked run every wire
    roundtrip under ``spike`` must be a ``lif_encode`` launch with the
@@ -63,7 +69,7 @@ on failure:
    checked run the count matmul shadow is on: at every boundary whose
    decoded output feeds a projection, ``count_matmul`` runs on the int8
    wire counts once per consuming weight (wq, wk, wv after the attention
-   input, w1, w3 after the MLP input: 24 x 5 launches per decode step
+   input, w1, w3 after the MLP input: L x 5 launches per decode step
    and per prefill), each launch held to its plain version, and the
    served streams must not change.  SNN mode (``hnn_mode="snn"``, the
    SNN roundtrips given seeded thresholds of their own) serves the same
@@ -100,7 +106,22 @@ on failure:
    equal to the fault-free replay's (after a work-preserving resume, to
    the continuation of its re-prefilled prompt), the ``SLOMonitor``'s
    TTFT / TPOT / step percentiles and attainment on the host clock;
-9. time the launch floor (a one-element ``zero_()``) and each kernel,
+9. the rest of the dense attention family at its published widths, in
+   float32 with seeded weights: ``gemma2-2b`` (26 layers, d_model 2304,
+   vocab 256000; local/global windows, both softcaps, post-norms, GeGLU,
+   tied embeddings) serves the main path's requests under ``none`` (ANN
+   mode), ``spike_fused``, ``spike`` and ``spike_pack4`` as in phase 4
+   (26 paged-decode launches a decode step), a ``spec_k=3`` serve under
+   ``spike_fused`` as in phase 5, a long-context serve (prompts of 4,200
+   and 4,500 tokens, 16 new, ``prefill_len`` 4608, ``max_seq`` 4640),
+   whose windowed launches must skip pages wholly outside the window,
+   and the ``launch.serve`` steps (a [2, 256] prefill, then 8 greedy
+   decode steps over its dense cache, equal to the engine's streams for
+   the same prompts up to the margin rule); ``granite-20b`` at 4 of its
+   52 layers (its full depth, 105 GiB in float32, does not fit one card)
+   serves them under ``none`` and ``spike_fused``, each at ``spec_k`` 0
+   and 3, every live paged-decode launch held to its plain version;
+10. time the launch floor (a one-element ``zero_()``) and each kernel,
    its plain version and its bound at the shapes the serve path gives
    it (``lif_encode`` in both compute types at the decode and the
    prefill rows, with and without the epilogue; ``pack4`` from both
@@ -111,14 +132,22 @@ on failure:
    weight shapes it meets, [1024, 2816] (w1, w3) and [1024, 1024] (wq,
    wk, wv) — against ``torch.matmul`` of the decoded float32
    activations and float32 weights, as yardsticks only); count the
-   CUDA kernels and memory operations of one decode step of four slots,
-   f32, under ``spike_fused``, ``spike`` and ``spike_pack4``, with
+   CUDA kernels and memory operations of one decode step of four slots
+   of the full 24-layer model, f32, under ``spike_fused``, ``spike`` and
+   ``spike_pack4``, with
    ``torch.profiler`` (after every timing); print one ``kernels`` JSON
-   line (paged decode's entry at the decode and the verify shape);
-10. print ``{"ok": true, "device": {...}}`` as the last line.
+   line (paged decode's entry at the main path's decode shape, and
+   under ``by_shape`` at every served decode and verify shape of the
+   four configs and on the other configs' conformance cases, each with
+   its launches, rows per block, row groups and warps);
+11. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result.  It imports nothing of JAX.
+
+``python3 chip_smoke.py --paged-times SRC`` prints only paged decode's
+kernel and plain times at the main path's decode and verify shapes and
+on the other configs' cases, for the package under ``SRC``.
 
 ``python3 chip_smoke.py --kernels-per-step SRC`` builds the kernels of
 the package under ``SRC`` (the ``src`` directory of a checkout, another
@@ -155,7 +184,12 @@ F32_FLOP_PER_S = 67e12
 # than 16 rows and bf16 weights (three bf16 products per f32 product)
 BF16_TC_FLOP_PER_S = 989e12
 MARGIN = 1e-4
-N_LAYERS = 24
+#: the depth at which the main path's phases serve qwen1.5-0.5b (of its
+#: 24 layers; its widths are not cut): with gemma2-2b and granite-20b
+#: served at full width too, the full depth took the smoke to 945 s of
+#: its 1200 s on a slower host.  The kernels per decode step are counted
+#: at the full 24 layers, comparable with earlier readings.
+N_LAYERS = 8
 #: the main path's codecs, in the order they are served
 CODECS = ("spike_fused", "spike", "spike_pack4", "sparse_topk")
 #: the boundary kernels, each equal to its plain version
@@ -173,6 +207,14 @@ SOURCE = {"paged_decode": "src/repro_torch/csrc/paged_decode.cu",
           "count_matmul": "src/repro_torch/csrc/count_matmul.cu",
           "pack4": "src/repro_torch/csrc/pack4.cu",
           "unpack4": "src/repro_torch/csrc/pack4.cu"}
+
+
+#: the main path's architecture; runs of the others carry their name
+MAIN_ARCH = "qwen1.5-0.5b"
+
+
+def arch_label(cfg) -> str:
+    return "" if cfg.name == MAIN_ARCH else f"{cfg.name} "
 
 
 def card_line() -> str:
@@ -291,45 +333,73 @@ def serve_case(cfg, slot_lens, seed=7, K1=1):
     return arrays
 
 
-def time_kernel(arrays, cfg):
-    """(kernel ms, plain ms, SDPA ms, bound ms, bound_by) at a serve
-    shape (K1 = 1 or more queries a slot) with the wire epilogue on, as
-    the spike_fused decode and verify steps run it."""
+def visible_keys(arrays, window=0):
+    """Per (slot, query) the number of keys the query sees — listed
+    pages' positions at or before its own and, with ``window``, inside
+    the window — and per slot the keys some query sees.  Returns
+    (sees [B, K1], union [B]), the work this run's data needs."""
+    _, kp, _, clp, clo, qpos = arrays
+    psz = kp.shape[1]
+    kpos = clo[:, :, None] + np.arange(psz)                   # [B, ppc, psz]
+    ok = (clp >= 0)[:, :, None].repeat(psz, 2).reshape(len(clp), -1)
+    kpos = kpos.reshape(len(clp), -1)
+    seen = (kpos[:, None, :] <= qpos[:, :, None]) & ok[:, None, :]
+    if window:
+        seen &= (qpos[:, :, None] - kpos[:, None, :]) < window
+    return seen.sum(-1), seen.any(1).sum(-1)
+
+
+def time_paged(arrays, window=0, cap=0.0):
+    """(kernel ms, plain ms, SDPA ms or None, bound ms, bound_by) of
+    paged decode on a case's arrays (f32 pools) with the wire epilogue
+    on, as the coded decode and verify steps run it.  SDPA, the
+    yardstick, attends over each slot's listed keys gathered densely in
+    list order, each query masked to the keys it sees (GQA heads
+    shared); no PyTorch call computes a softcapped score, so there is
+    none where ``cap`` is set."""
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels.cases import to_tensors
     q, kp, vp, clp, clo, qpos = to_tensors(arrays, "cuda")
+    kw = dict(window=window, cap=cap, encode_wire=True)
     flush = torch.empty(96 * 2**20 // 4, dtype=torch.float32,
                         device="cuda")
     ms = cuda_ms(lambda: PD.paged_decode_cuda(q, kp, vp, clp, clo, qpos,
-                                              encode_wire=True), flush)
+                                              **kw), flush)
     plain_ms = cuda_ms(lambda: PD.paged_decode_plain(
-        q, kp, vp, clp, clo, qpos, encode_wire=True), flush)
-    # yardstick: SDPA over the already gathered live tokens of each slot,
-    # each query masked to the positions up to its own
+        q, kp, vp, clp, clo, qpos, **kw), flush)
     B, K1, Hq, dh = q.shape
-    lens = arrays[5][:, -1] + 1
-    Lmax = int(lens.max())
-    k_d = torch.zeros((B, Hq, Lmax, dh), device="cuda")
-    v_d = torch.zeros_like(k_d)
-    for b in range(B):
-        rows = torch.tensor(clp[b][clp[b] >= 0].tolist(), device="cuda")
-        kk = kp[rows].reshape(-1, Hq, dh)[:lens[b]]
-        vv = vp[rows].reshape(-1, Hq, dh)[:lens[b]]
-        k_d[b, :, :lens[b]] = kk.transpose(0, 1)
-        v_d[b, :, :lens[b]] = vv.transpose(0, 1)
-    mask = (torch.arange(Lmax, device="cuda")[None, None, :]
-            <= torch.tensor(arrays[5], device="cuda")[:, :, None])[:, None]
-    q_d = q.permute(0, 2, 1, 3).contiguous()
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q_d, k_d, v_d, attn_mask=mask), flush)
-    # least work: every live token's K and V row once, q, and the wire
-    # outputs (int8 partial, f32 scale, f32 lse); 4 flops per score entry
-    # a query sees
-    tokens = int(lens.sum())
-    nbytes = (2 * tokens * kp.shape[2] * dh * kp.element_size()
+    _, psz, Hkv, _ = kp.shape
+    lib_ms = None
+    if not cap:
+        ppc = clp.shape[1]
+        safe = torch.where(clp >= 0, clp, 0).long()
+        k_d = kp[safe].reshape(B, ppc * psz, Hkv, dh).transpose(1, 2)
+        v_d = vp[safe].reshape(B, ppc * psz, Hkv, dh).transpose(1, 2)
+        kpos = (clo[:, :, None] + torch.arange(psz, device="cuda")
+                ).reshape(B, -1)
+        ok = (clp >= 0)[:, :, None].expand(B, ppc, psz).reshape(B, -1)
+        mask = (kpos[:, None, :] <= qpos[:, :, None]) & ok[:, None, :]
+        if window:
+            mask &= (qpos[:, :, None] - kpos[:, None, :]) < window
+        # up to the last key some query sees (a slot's allocated lists
+        # hold pages past its length)
+        L = int(mask.any(1).any(0).nonzero().max()) + 1
+        k_d = k_d[:, :, :L].contiguous()
+        v_d = v_d[:, :, :L].contiguous()
+        mask = mask[:, None, :, :L]                          # [B,1,K1,L]
+        q_d = q.permute(0, 2, 1, 3).contiguous()
+        lib_ms = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q_d, k_d, v_d, attn_mask=mask, enable_gqa=Hq != Hkv),
+            flush)
+    # least work: every key some query sees, K and V once, q, the list,
+    # and the wire outputs (int8 partial, f32 scale, f32 lse); 4 flops
+    # per (query head, key it sees, dim)
+    sees, union = visible_keys(arrays, window)
+    nbytes = (2 * int(union.sum()) * Hkv * dh * kp.element_size()
               + q.numel() * 4 + B * K1 * Hq * dh + 2 * B * K1 * Hq * 4
               + 2 * clp.numel() * 4 + qpos.numel() * 4)
-    flops = 4 * int((arrays[5] + 1).sum()) * Hq * dh
+    flops = 4 * int(sees.sum()) * Hq * dh
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (ms, plain_ms, lib_ms, max(t_bytes, t_ops),
@@ -723,19 +793,8 @@ def check_repeatable(s_case):
     the two results must be equal bit for bit.  Returns the launches
     compared."""
     from repro_torch.kernels import count_matmul as CM
-    from repro_torch.kernels import paged_decode as PD
-    from repro_torch.kernels.cases import count_matmul_case, to_tensors
-    n = 0
-    for dt in (torch.float32, torch.bfloat16):
-        ts = to_tensors(s_case, "cuda", dt)
-        for wire in (False, True):
-            a = PD.paged_decode_cuda(*ts, encode_wire=wire)
-            b = PD.paged_decode_cuda(*ts, encode_wire=wire)
-            torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(a, b)):
-                raise AssertionError(f"paged_decode {dt} wire={wire}: two "
-                                     "launches differ")
-            n += 1
+    from repro_torch.kernels.cases import count_matmul_case
+    n = paged_repeatable(s_case)
     for M in (4, 256):
         for N in (2816, 1024):
             c, w, sc = (torch.tensor(a, device="cuda") for a in
@@ -749,6 +808,27 @@ def check_repeatable(s_case):
                     raise AssertionError(f"count_matmul [{M},1024]x[1024,"
                                          f"{N}] {od}: two launches differ")
                 n += 1
+    return n
+
+
+def paged_repeatable(arrays, window=0, cap=0.0):
+    """Paged decode launched twice on the same inputs, f32 and bf16
+    pools, wire off and on: the two results must be equal bit for bit.
+    Returns the launch pairs compared."""
+    from repro_torch.kernels import paged_decode as PD
+    from repro_torch.kernels.cases import to_tensors
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        ts = to_tensors(arrays, "cuda", dt)
+        for wire in (False, True):
+            kw = dict(window=window, cap=cap, encode_wire=wire)
+            a = PD.paged_decode_cuda(*ts, **kw)
+            b = PD.paged_decode_cuda(*ts, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"paged_decode {dt} wire={wire}: two "
+                                     "launches differ")
+            n += 1
     return n
 
 
@@ -775,6 +855,11 @@ class LaunchCheck:
         self.cm_steps = 0        # most bf16 steps where the tolerance is
         #                          finer than half a step
         self.k1 = collections.Counter()   # paged decode launches by K1
+        #: windowed paged-decode launches, and the live list entries
+        #: (summed over them) whose keys all lie outside the window of
+        #: every query of their slot: pages the window drops
+        self.windowed = 0
+        self.window_dropped = 0
 
     def patches(self):
         from repro_torch.kernels import count_matmul as CM
@@ -831,6 +916,12 @@ class LaunchCheck:
         plain = paged_decode_plain(*args, **kw)
         self.launches["paged_decode"] += 1
         self.k1[args[0].shape[1]] += 1
+        if kw.get("window"):
+            _, kp, _, clp, clo, qpos = args
+            last = clo + kp.shape[1] - 1                     # [B, ppc]
+            early = qpos.min(1).values[:, None] - last >= kw["window"]
+            self.windowed += 1
+            self.window_dropped += int(((clp >= 0) & early).sum())
         if kw.get("encode_wire"):
             (w, s, lse), (pw, ps, plse) = out, plain
             torch.testing.assert_close(s, ps, rtol=1e-5, atol=0.0)
@@ -863,9 +954,12 @@ class WireTrace:
     without the decode's int8 partial) where a decode step has its
     attention wire."""
 
-    def __init__(self):
+    def __init__(self, prefill=True):
         self.eng = None
         self._step = None
+        #: trace the prefills too (False: decode and verify steps only —
+        #: a long prompt's rows would hold gigabytes on the card)
+        self.prefill = prefill
         self.schedule = []
         self._rows = {}          # (rid, t, site) -> (kind, pre, wire, drafts)
         #: (rid, prior, position) -> {site: (kind, pre, wire)}
@@ -885,8 +979,8 @@ class WireTrace:
 
     def _admit(self, orig, entry):
         req, prior, _, prompt = self.eng._entry_parts(entry)
-        self._step = {"prefill": (req.rid, len(prior), len(prompt)),
-                      "site": 0}
+        self._step = ({"prefill": (req.rid, len(prior), len(prompt)),
+                       "site": 0} if self.prefill else None)
         try:
             return orig(entry)
         finally:
@@ -1138,7 +1232,8 @@ def hooked(eng, hooks):
 
 
 def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
-          shadow=False, temps=None, no_sync_dispatch=False, **knobs):
+          shadow=False, temps=None, no_sync_dispatch=False, max_seq=256,
+          **knobs):
     """One engine run; returns (streams, margins, engine, seconds,
     decode-only step times).  ``hooks`` (``LaunchCheck``, ``WireTrace``)
     watch the run; ``shadow`` turns the count matmul
@@ -1147,12 +1242,13 @@ def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
     every dispatch under ``torch.cuda.set_sync_debug_mode("error")``, so
     that a dispatch that makes the host wait for the card raises;
     ``knobs`` are further ``EngineConfig`` fields (``spec_k``, ``top_k``,
-    ``top_p``, ``seed``, ``async_depth``).  Every page and slot must be
-    free, the limbo empty and every dispatched step committed at the
-    end."""
+    ``top_p``, ``seed``, ``async_depth``, ``prefill_len``); ``max_seq``
+    the engine's context length (256: the main path's).  Every page and
+    slot must be free, the limbo empty and every dispatched step
+    committed at the end."""
     from repro_torch.serving import EngineConfig, Request, ServingEngine
     eng = ServingEngine(cfg, params, EngineConfig(
-        num_slots=4, max_seq=256, page_size=16, attn_kernel=kernel,
+        num_slots=4, max_seq=max_seq, page_size=16, attn_kernel=kernel,
         **knobs), device=device)
     if shadow:
         eng.ctx = eng.ctx.with_(count_matmul_shadow=True)
@@ -1242,7 +1338,7 @@ def snn_roundtrips(eng):
     SNN mode."""
     if eng.cfg.hnn_mode != "snn":
         return 0
-    return N_LAYERS * (eng.decode_steps + 2 * eng.prefills)
+    return eng.cfg.n_layers * (eng.decode_steps + 2 * eng.prefills)
 
 
 def expected_launches(codec, walk, eng, shadow=False):
@@ -1257,16 +1353,15 @@ def expected_launches(codec, walk, eng, shadow=False):
     and 4 per prefill; ``count_matmul`` only with the shadow on: once
     per consuming weight (5 per layer) per decode step and per
     prefill."""
-    steps, pre = eng.decode_steps, eng.prefills
-    want = {"paged_decode": N_LAYERS * steps if walk == "fused" else 0,
+    steps, pre, L = eng.decode_steps, eng.prefills, eng.cfg.n_layers
+    want = {"paged_decode": L * steps if walk == "fused" else 0,
             "lif_encode": 0, "pack4": 0, "unpack4": 0,
-            "count_matmul": (N_LAYERS * SHADOW_WEIGHTS * (steps + pre)
+            "count_matmul": (L * SHADOW_WEIGHTS * (steps + pre)
                              if shadow else 0)}
     if codec == "spike":
-        want["lif_encode"] = 4 * N_LAYERS * (steps + pre) + snn_roundtrips(
-            eng)
+        want["lif_encode"] = 4 * L * (steps + pre) + snn_roundtrips(eng)
     if codec == "spike_pack4":
-        want["pack4"] = want["unpack4"] = N_LAYERS * (2 * steps + 4 * pre)
+        want["pack4"] = want["unpack4"] = L * (2 * steps + 4 * pre)
     return want
 
 
@@ -1276,7 +1371,8 @@ def check_fused_variants(label, codec, check, want, eng):
     every wire roundtrip (and SNN roundtrip) is a ``lif_encode`` launch
     with the epilogue, every pack a ``pack4_counts``, every unpack an
     ``unpack4_decode``."""
-    roundtrips = 2 * N_LAYERS * eng.decode_steps + snn_roundtrips(eng)
+    roundtrips = 2 * eng.cfg.n_layers * eng.decode_steps + snn_roundtrips(
+        eng)
     fused_want = {"epilogues": roundtrips if codec == "spike" else 0,
                   "pack4_counts": want["pack4"], "pack4": 0,
                   "unpack4_decode": want["unpack4"], "unpack4": 0}
@@ -1289,7 +1385,8 @@ def check_fused_variants(label, codec, check, want, eng):
                              f"expected {fused_want}")
 
 
-def serve_codec(cfg, params, requests, codec, shadow=False):
+def serve_codec(cfg, params, requests, codec, shadow=False,
+                trace_prefill=True, **knobs):
     """One codec's main path: the kernel-walk run, timed, with every
     launch count set to 0 just before it and read just after; then the
     reference walk and the kernel walk again, traced at every wire, the
@@ -1298,14 +1395,17 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
     before and read just after).  Returns (launch counts of the timed
     run, the ``LaunchCheck``, tokens/s, median decode step ms, launch
     counts of the checked run, ``streams_digest`` of the served
-    streams, (the served streams, their margins))."""
+    streams, (the served streams, their margins)).  ``knobs`` go to
+    every ``serve`` (``max_seq``, ``prefill_len``); ``trace_prefill``
+    False traces the decode steps only."""
     from repro_torch.kernels import ops
     cfg_c = cfg.replace(codec=codec)
     bf16 = cfg.dtype == torch.bfloat16
-    label = f"{cfg.hnn_mode}/{codec}" + ("/bf16" if bf16 else "")
+    label = (f"{arch_label(cfg)}{cfg.hnn_mode}/{codec}"
+             + ("/bf16" if bf16 else ""))
     ops.reset_launch_counts()
     fused, margins, eng, secs, steps = serve(cfg_c, params, requests,
-                                             "fused")
+                                             "fused", **knobs)
     launches = ops.launch_counts()
     want = expected_launches(codec, "fused", eng)
     if launches != want or eng.decode_steps == 0:
@@ -1325,19 +1425,20 @@ def serve_codec(cfg, params, requests, codec, shadow=False):
           f"launches {launches}, streams sha256 {digest}", flush=True)
 
     ops.reset_launch_counts()
-    tr_r = WireTrace()
+    tr_r = WireTrace(trace_prefill)
     ref, ref_margins, eng_r, secs_r, steps_r = serve(
-        cfg_c, params, requests, "reference", hooks=(tr_r,))
+        cfg_c, params, requests, "reference", hooks=(tr_r,), **knobs)
     if ops.launch_counts() != expected_launches(codec, "reference", eng_r):
         raise AssertionError(f"{label} reference walk: launches "
                              f"{ops.launch_counts()}")
     print(f"serve {label} reference (traced): {n_tok / secs_r:.1f} "
           f"tok/s, median decode step {1e3 * np.median(steps_r):.3f} ms",
           flush=True)
-    tr_f, check = WireTrace(), LaunchCheck()
+    tr_f, check = WireTrace(trace_prefill), LaunchCheck()
     ops.reset_launch_counts()
     traced, _, eng_t, *_ = serve(cfg_c, params, requests, "fused",
-                                 hooks=(tr_f, check), shadow=shadow)
+                                 hooks=(tr_f, check), shadow=shadow,
+                                 **knobs)
     checked = ops.launch_counts()
     if traced != fused:
         raise AssertionError(f"{label}: two kernel-walk runs gave different "
@@ -1410,7 +1511,7 @@ def serve_spec(cfg, params, requests, codec):
     a ``spec_k=0`` margin of 1e-4.  Returns a summary dict."""
     from repro_torch.kernels import ops
     cfg_c = cfg.replace(codec=codec)
-    label = f"{cfg.hnn_mode}/{codec}"
+    label = f"{arch_label(cfg)}{cfg.hnn_mode}/{codec}"
     coded = cfg_c.hnn_mode != "ann" and codec != "none"
     van, van_margins, eng_v, secs_v, steps_v = serve(cfg_c, params, requests,
                                                      "fused")
@@ -1890,15 +1991,229 @@ def kernels_per_step(cfg, params, codec):
     return {"kernels": len(dev) - mem, "memory_ops": mem}, names
 
 
-def full_width_f32():
-    """The served configuration, full-width ``qwen1.5-0.5b`` in float32,
-    and its seeded weights on the card."""
+#: the published widths each served config must have (its config
+#: file's source), so that a registry edit cannot shrink a smoke run
+WIDTHS = {
+    "qwen1.5-0.5b": dict(d_model=1024, n_heads=16, n_kv_heads=16, d_head=64,
+                         d_ff=2816, vocab=151936),
+    "gemma2-2b": dict(n_layers=26, d_model=2304, n_heads=8, n_kv_heads=4,
+                      d_head=256, d_ff=9216, vocab=256000, window=4096,
+                      attn_softcap=50.0, final_softcap=30.0, post_norm=True,
+                      tie_embeddings=True),
+    "granite-20b": dict(d_model=6144, n_heads=48, n_kv_heads=1, d_head=128,
+                        d_ff=24576, vocab=49152),
+}
+
+
+def full_width(arch, n_layers=None):
+    """A registered config at its published widths in float32 (depth cut
+    to ``n_layers`` if given) and its seeded weights on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import model_defs
     from repro_torch.models.params import init_params
-    cfg = get_config("qwen1.5-0.5b").replace(dtype=torch.float32)
+    cfg = get_config(arch).replace(dtype=torch.float32)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    got = {k: getattr(cfg, k) for k in WIDTHS[arch]}
+    if got != WIDTHS[arch]:
+        raise AssertionError(f"unexpected {arch} config: {got}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     return cfg, init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+
+
+def serve_ann(cfg, params, requests, **knobs):
+    """ANN mode (codec ``none``), where nothing rounds on a wire: the
+    kernel-walk run, timed, with every launch count set to 0 just before
+    it and read just after (one paged-decode launch per layer and decode
+    step); the kernel walk again with every paged-decode launch checked
+    on its live inputs (the same streams); the reference walk, whose
+    streams the kernel walk's must equal up to the margin rule.  Returns
+    what ``serve_codec`` returns (the ``LaunchCheck`` of the checked
+    run; no traced wire)."""
+    from repro_torch.kernels import ops
+    cfg_a = cfg.replace(hnn_mode="ann", codec="none")
+    label = f"{arch_label(cfg)}ann/none"
+    ops.reset_launch_counts()
+    fused, margins, eng, secs, steps = serve(cfg_a, params, requests,
+                                             "fused", **knobs)
+    launches = ops.launch_counts()
+    want = expected_launches("none", "fused", eng)
+    if launches != want or eng.decode_steps == 0:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want} for {eng.decode_steps} decode steps")
+    check = LaunchCheck()
+    ops.reset_launch_counts()
+    checked_streams, *_ = serve(cfg_a, params, requests, "fused",
+                                hooks=(check,), **knobs)
+    checked = ops.launch_counts()
+    if checked_streams != fused or check.launches["paged_decode"] != want[
+            "paged_decode"]:
+        raise AssertionError(f"{label}: the checked run served other "
+                             f"streams or checked {dict(check.launches)}")
+    ref, ref_margins, *_ = serve(cfg_a, params, requests, "reference",
+                                 **knobs)
+    compared, _, by_margin = check_streams(fused, ref, ref_margins)
+    n_tok = sum(len(v) for v in fused.values())
+    tok_s, step_ms = n_tok / secs, 1e3 * float(np.median(steps))
+    digest = streams_digest(fused)
+    print(f"serve {label} fused: {n_tok} tokens in {secs:.3f} s = "
+          f"{tok_s:.1f} tok/s, {eng.decode_steps} decode steps, "
+          f"{eng.prefills} prefills, median decode step {step_ms:.3f} ms, "
+          f"launches {launches}, streams sha256 {digest}; checked run: "
+          f"{check.launches['paged_decode']} paged-decode launches held to "
+          f"the plain version on their live inputs; fused == reference on "
+          f"{compared} of {n_tok} tokens ({by_margin} requests compared up "
+          f"to a margin <= {MARGIN})", flush=True)
+    return launches, check, tok_s, step_ms, checked, digest, (fused, margins)
+
+
+#: the long-context serve: two prompts past the gemma2 window
+LONG_PROMPTS, LONG_NEW = (4200, 4500), 16
+LONG_KNOBS = dict(max_seq=4640, prefill_len=4608)
+
+
+def serve_long(cfg, params):
+    """Two requests of 4,200 and 4,500 prompt tokens and 16 new tokens
+    (``prefill_len`` 4608, ``max_seq`` 4640, pages of 16) under
+    ``spike_fused``, as ``serve_codec`` serves (decode steps traced, not
+    the prefills): the local layers' window (4096) drops pages in the
+    prefill's attention and in every decode step.  The checked run must
+    make one windowed paged-decode launch per local layer and decode
+    step, and those launches must skip pages wholly outside the
+    window."""
+    rng = np.random.RandomState(3)
+    requests = [(rng.randint(0, cfg.vocab, n).tolist(), LONG_NEW)
+                for n in LONG_PROMPTS]
+    out = serve_codec(cfg, params, requests, "spike_fused",
+                      trace_prefill=False, **LONG_KNOBS)
+    check = out[1]
+    local = sum(k == "local" for k in cfg.pattern) * cfg.n_units
+    if check.windowed != local * check.launches["paged_decode"] // (
+            cfg.n_layers) or check.window_dropped == 0:
+        raise AssertionError(f"long context: {check.windowed} windowed "
+                             f"launches dropped {check.window_dropped} "
+                             "pages")
+    print(f"long context {cfg.name}: {check.windowed} windowed paged-decode "
+          f"launches checked, {check.window_dropped} live list entries "
+          "wholly outside the window skipped", flush=True)
+    return out
+
+
+def serve_dense(cfg, params, S=256, new=9):
+    """The port's ``launch.serve`` steps under codec ``none`` (ANN): a
+    [2, S] prefill, its dense cache given room for the new tokens, then
+    ``new - 1`` greedy decode steps at positions S, S + 1, ...; the
+    greedy tokens must equal the engine's streams for the same prompts
+    (``prefill_len`` S) up to the engine's margin rule.  The dense path
+    runs no hand kernel (the reference's dense decode is plain array
+    code), which the launch counts show."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    cfg_a = cfg.replace(hnn_mode="ann", codec="none")
+    dev = params["embed"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rng = np.random.RandomState(9)
+    tok = rng.randint(0, cfg.vocab, (2, S))
+    prefill = SV.make_prefill_step(cfg_a, device=dev)
+    decode = SV.make_decode_step(cfg_a, device=dev)
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": torch.tensor(
+        tok, device=dev)})
+    cache = {p: {"kv": {n: torch.cat([c, c.new_zeros(
+        c.shape[:2] + (new - 1,) + c.shape[3:])], dim=2)
+        for n, c in leaf["kv"].items()}} for p, leaf in cache.items()}
+    out = [SV.greedy_sample(logits)]
+    for t in range(new - 1):
+        logits, cache = decode(params, cache, out[-1], S + t)
+        out.append(SV.greedy_sample(logits))
+    dense = torch.stack(out, 1).cpu().tolist()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    eng, margins, *_ = serve(cfg_a, params, [(row.tolist(), new)
+                                             for row in tok], "fused",
+                             max_seq=S + 16, prefill_len=S)
+    compared, _, by_margin = check_streams(dict(enumerate(dense)), eng,
+                                           margins)
+    print(f"launch.serve {cfg.name} ann/none: [2, {S}] prefill and "
+          f"{new - 1} dense decode steps in {secs:.3f} s, launches "
+          f"{launches}; dense == engine on {compared} of {2 * new} tokens "
+          f"({by_margin} requests compared up to a margin <= {MARGIN})",
+          flush=True)
+    return {"tokens_compared": compared, "cut_by_margin": by_margin,
+            "seconds": secs}
+
+
+def serve_gemma2():
+    """Full-width ``gemma2-2b`` (26 layers, d_model 2304, 8 heads on 4 kv
+    heads of 256, d_ff 9216, vocab 256000, windows of 4096 on the local
+    layers, softcaps 50 and 30, post-norms, GeGLU, tied embeddings) in
+    float32 with seeded weights: the main path's requests under ANN
+    ``none``, ``spike_fused``, ``spike`` and ``spike_pack4``; a
+    ``spec_k=3`` serve under ``spike_fused``; the long-context serve;
+    the ``launch.serve`` walk.  Returns (runs, spec summary, long run,
+    dense summary)."""
+    cfg, params = full_width("gemma2-2b")
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"gemma2-2b: {n_par} parameters in float32", flush=True)
+    requests = smoke_requests(cfg.vocab)[1]
+    serve(cfg, params, [(p, 4) for p, _ in requests[:2]], "fused")
+    runs = {"ann/none": serve_ann(cfg, params, requests)}
+    for codec in ("spike_fused", "spike", "spike_pack4"):
+        runs[codec] = serve_codec(cfg, params, requests, codec)
+    spec = serve_spec(cfg, params, spec_requests(), "spike_fused")
+    long = serve_long(cfg, params)
+    dense = serve_dense(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return runs, spec, long, dense
+
+
+#: granite-20b's depth in the smoke: its 52 layers at full width are
+#: 28.2 B parameters (105 GiB in float32), beyond one card
+GRANITE_LAYERS = 4
+
+
+def serve_granite():
+    """Full-width ``granite-20b`` (d_model 6144, 48 heads on one kv head
+    of 128, d_ff 24576, vocab 49152) at ``GRANITE_LAYERS`` layers, f32,
+    seeded weights: the main path's requests under ANN ``none`` and
+    ``spike_fused``, each at ``spec_k`` 0 and 3, every live paged-decode
+    launch held to its plain version.  Returns (runs, spec summaries)."""
+    cfg, params = full_width("granite-20b", GRANITE_LAYERS)
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"granite-20b at {cfg.n_layers} layers: {n_par} parameters in "
+          "float32", flush=True)
+    requests = smoke_requests(cfg.vocab)[1]
+    serve(cfg, params, [(p, 4) for p, _ in requests[:2]], "fused")
+    runs = {"ann/none": serve_ann(cfg, params, requests),
+            "spike_fused": serve_codec(cfg, params, requests,
+                                       "spike_fused")}
+    spec = {"none": serve_spec(cfg.replace(hnn_mode="ann"), params,
+                               requests, "none"),
+            "spike_fused": serve_spec(cfg, params, requests,
+                                      "spike_fused")}
+    del params
+    torch.cuda.empty_cache()
+    return runs, spec
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def launch_plan_of(arrays, pool_dtype=torch.float32):
+    """{rows_per_block, row_groups, warps} of paged decode on a case."""
+    from repro_torch.kernels.paged_decode import launch_plan
+    q, kp, _, clp, _, _ = arrays
+    plan = launch_plan(q.shape[0], q.shape[1], q.shape[2], kp.shape[2],
+                       q.shape[3], kp.shape[1], clp.shape[1], pool_dtype)
+    return dict(zip(("rows_per_block", "row_groups", "warps"), plan))
 
 
 #: the codecs whose kernels per decode step are counted: those whose
@@ -1929,13 +2244,50 @@ def count_step_kernels(label, cfg, params):
     return counts
 
 
+class PhaseClock:
+    """Prints each phase's seconds on the host clock as it ends, so a
+    run shows where the smoke's time limit goes."""
+
+    def __init__(self):
+        self.t = self.t0 = time.perf_counter()
+
+    def mark(self, name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - self.t:.1f} s (total "
+              f"{now - self.t0:.1f} s)", flush=True)
+        self.t = now
+
+
+def paged_times():
+    """Paged decode's kernel and plain ms (f32 pools, wire on) at the main
+    path's decode and verify shapes and on the other configs' cases
+    that the package on ``sys.path`` has, for the package on
+    ``sys.path`` (another checkout's too), so that two commits' kernels
+    are timed in one call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cases
+    build.build(["paged_decode"])
+    cfg = get_config(MAIN_ARCH)
+    lens = smoke_requests(cfg.vocab)[0]
+    out = {}
+    for K1 in (1, SPEC_K + 1):
+        case = serve_case(cfg, [int(L) + 16 for L in lens[:4]], K1=K1)
+        out[f"{MAIN_ARCH} K1={K1}"] = time_paged(case)[:2]
+    for name in getattr(cases, "ARCH_CASES", ()):
+        arrays, window, cap = cases.case_arrays(name)
+        out[name] = time_paged(arrays, window, cap)[:2]
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if argv and (len(argv) != 2 or argv[0] != "--kernels-per-step"):
-        print("usage: chip_smoke.py [--kernels-per-step SRC]",
-              file=sys.stderr)
+    modes = ("--kernels-per-step", "--paged-times")
+    if argv and (len(argv) != 2 or argv[0] not in modes):
+        print("usage: chip_smoke.py [--kernels-per-step SRC | "
+              "--paged-times SRC]", file=sys.stderr)
         return 2
     src = Path(argv[1]).resolve() if argv else SRC
     if not (src / "repro_torch" / "csrc").is_dir():
@@ -1945,12 +2297,16 @@ def main(argv) -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv and argv[0] == "--paged-times":
+        print(json.dumps({"paged_times": {str(argv[1]): paged_times()}}),
+              flush=True)
+        return 0
     if argv:
         # only the kernel count, for the package under ``src`` (another
         # checkout's, to compare two commits in one call)
         from repro_torch.kernels import build
         build.build()
-        cfg, params = full_width_f32()
+        cfg, params = full_width(MAIN_ARCH)
         count_step_kernels(str(argv[1]), cfg, params)
         requests = smoke_requests(cfg.vocab)[1]
         print(json.dumps({"streams_sha256": {str(argv[1]): {
@@ -1961,12 +2317,13 @@ def main(argv) -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.cases import CASES, case_arrays
+    from repro_torch.kernels.cases import ARCH_CASES, CASES, case_arrays
     from repro_torch.models.model import model_defs
     from repro_torch.models.params import init_params
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    clock = PhaseClock()
 
     t = time.perf_counter()
     logs = build.build()
@@ -1977,10 +2334,9 @@ def main(argv) -> int:
             if "registers" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    cfg, params = full_width_f32()
-    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff,
-            cfg.vocab, cfg.hnn_mode, cfg.codec) != (
-            N_LAYERS, 1024, 16, 64, 2816, 151936, "hnn", "spike_fused"):
+    cfg, params = full_width(MAIN_ARCH, N_LAYERS)
+    if (cfg.n_layers, cfg.hnn_mode, cfg.codec) != (N_LAYERS, "hnn",
+                                                   "spike_fused"):
         raise AssertionError(f"unexpected serving config {cfg}")
 
     lens, requests = smoke_requests(cfg.vocab)
@@ -1993,6 +2349,13 @@ def main(argv) -> int:
             max_err = max(max_err, e)
             print(f"check paged_decode {name} {str(dt)[6:]}: max abs err "
                   f"{e:.3g}", flush=True)
+    for name in ARCH_CASES:
+        arrays, window, cap = case_arrays(name)
+        n = paged_repeatable(arrays, window, cap)
+        plans = {str(dt)[6:]: launch_plan_of(arrays, dt)
+                 for dt in (torch.float32, torch.bfloat16)}
+        print(f"check paged_decode {name}: {n} pairs of launches equal bit "
+              f"for bit; launch plan {plans}", flush=True)
     s_case = serve_case(cfg, [int(L) + 16 for L in lens[:4]])
     v_case = serve_case(cfg, [int(L) + 16 for L in lens[:4]], K1=SPEC_K + 1)
     for name, case in (("serve_shape", s_case), ("verify_shape", v_case)):
@@ -2021,6 +2384,7 @@ def main(argv) -> int:
           "count_matmul at their serve shapes equal bit for bit",
           flush=True)
 
+    clock.mark("build and kernel checks")
     # warm-up (library handles, the caching allocator, first launches),
     # outside every timed and counted run
     serve(cfg, params, [(p, 4) for p, _ in requests[:2]], "fused")
@@ -2031,23 +2395,15 @@ def main(argv) -> int:
 
     # ANN mode (codec none): nothing rounds on a wire, so the streams
     # must agree wherever the margin allows
-    cfg_ann = cfg.replace(hnn_mode="ann", codec="none")
-    check = LaunchCheck()
-    fused_a, *_ = serve(cfg_ann, params, requests, "fused", hooks=(check,))
-    ref_a, ref_margins_a, *_ = serve(cfg_ann, params, requests, "reference")
-    compared_a, _, by_margin_a = check_streams(fused_a, ref_a, ref_margins_a)
-    n_tok = sum(len(v) for v in fused_a.values())
-    print(f"streams ann/none: {check.launches['paged_decode']} kernel "
-          f"launches checked; fused == reference on {compared_a} of {n_tok} "
-          f"tokens ({by_margin_a} requests compared up to a margin <= "
-          f"{MARGIN})", flush=True)
+    runs["ann/none"] = serve_ann(cfg, params, requests)
 
     runs.update((codec, serve_codec(cfg, params, requests, codec))
                 for codec in CODECS[1:])
 
+    clock.mark("main path, five codecs")
     # the published dtype, bfloat16, under ``spike``: lif_encode in its
     # bf16 mode, and the count matmul shadow on the live wire counts
-    cfg16 = get_config("qwen1.5-0.5b")
+    cfg16 = get_config(MAIN_ARCH, n_layers=N_LAYERS)
     if cfg16.dtype != torch.bfloat16 or cfg16.replace(
             dtype=torch.float32) != cfg:
         raise AssertionError(f"unexpected bf16 serving config {cfg16}")
@@ -2079,10 +2435,8 @@ def main(argv) -> int:
         print(f"snn/{codec}: streams {'equal' if same else 'differ from'} "
               "those of HNN mode", flush=True)
     del params_snn
-    print(json.dumps({"serve": {codec: {"tok_s": r[2], "median_step_ms": r[3],
-                                        "streams_sha256": r[5]}
-                                for codec, r in runs.items()}}), flush=True)
 
+    clock.mark("bf16 and SNN")
     # speculative decoding with the n-gram drafter, K1 = SPEC_K + 1
     spec_reqs = spec_requests()
     spec = {}
@@ -2091,6 +2445,7 @@ def main(argv) -> int:
         spec[codec] = serve_spec(cfg_s, params, spec_reqs, codec)
     print(json.dumps({"spec": spec}), flush=True)
 
+    clock.mark("spec")
     # stochastic sampling: the distribution on the card, and seeded
     # sampled serving beside the greedy run of the main path
     tv = check_sampling_tv()
@@ -2099,6 +2454,7 @@ def main(argv) -> int:
     sampled = serve_sampled(cfg, params, requests, *runs["spike_fused"][6])
     print(json.dumps({"sampling": {"tv": tv, **sampled}}), flush=True)
 
+    clock.mark("sampling")
     # the dispatch/commit pipeline (async_depth=1) beside the synchronous
     # loop, then a fault-injected trace replay through it
     async_runs = {codec: serve_async(cfg, params, requests, codec)
@@ -2106,17 +2462,73 @@ def main(argv) -> int:
     print(json.dumps({"async": async_runs}), flush=True)
     print(json.dumps({"faults": serve_faults(cfg, params)}), flush=True)
 
+    # the rest of the dense attention family at full width: gemma2-2b
+    # (every decode-path codec, spec, a context past its window, the
+    # launch.serve steps), then granite-20b's MQA at cut depth
+    clock.mark("async and faults")
+    g_runs, g_spec, g_long, g_dense = serve_gemma2()
+    clock.mark("gemma2-2b")
+    gr_runs, gr_spec = serve_granite()
+    clock.mark("granite-20b")
+    serve_line = dict(runs)
+    serve_line.update((f"gemma2-2b {k}", r) for k, r in g_runs.items())
+    serve_line["gemma2-2b long/spike_fused"] = g_long
+    serve_line.update((f"granite-20b {k}", r) for k, r in gr_runs.items())
+    print(json.dumps({"serve": {k: {"tok_s": r[2], "median_step_ms": r[3],
+                                    "streams_sha256": r[5]}
+                                for k, r in serve_line.items()}}),
+          flush=True)
+    print(json.dumps({"spec_archs": {"gemma2-2b spike_fused": g_spec,
+                                     **{f"granite-20b {k}": v
+                                        for k, v in gr_spec.items()}},
+                      "launch_serve": g_dense}), flush=True)
+
+    # paged decode at every served shape (the served lists of the main
+    # path's requests, each config's local layer where it has windows)
+    # and on the other configs' conformance cases, f32 pools, the wire
+    # epilogue on as the coded steps run it
+    cfg_g = get_config("gemma2-2b")
+    cfg_gr = get_config("granite-20b")
+    g_lens = smoke_requests(cfg_g.vocab)[0]
+    gr_lens = smoke_requests(cfg_gr.vocab)[0]
+    shapes = [
+        ("qwen1.5-0.5b decode", s_case, 0, 0.0,
+         runs["spike_fused"][0]["paged_decode"]),
+        ("qwen1.5-0.5b verify", v_case, 0, 0.0,
+         spec["spike_fused"]["launches"]["paged_decode"]),
+        ("gemma2-2b decode", serve_case(cfg_g, [int(L) + 16 for L in
+                                                g_lens[:4]]),
+         cfg_g.window, cfg_g.attn_softcap,
+         g_runs["spike_fused"][0]["paged_decode"]),
+        ("gemma2-2b verify", serve_case(cfg_g, [int(L) + 16 for L in
+                                                g_lens[:4]],
+                                        K1=SPEC_K + 1),
+         cfg_g.window, cfg_g.attn_softcap,
+         g_spec["launches"]["paged_decode"]),
+        ("granite-20b decode", serve_case(cfg_gr, [int(L) + 16 for L in
+                                                   gr_lens[:4]]),
+         0, 0.0, gr_runs["spike_fused"][0]["paged_decode"]),
+        ("granite-20b verify", serve_case(cfg_gr, [int(L) + 16 for L in
+                                                   gr_lens[:4]],
+                                          K1=SPEC_K + 1),
+         0, 0.0, gr_spec["spike_fused"]["launches"]["paged_decode"]),
+    ]
+    shapes += [(name,) + case_arrays(name) + (None,) for name in ARCH_CASES]
     paged = []
-    for K1, arrays in ((1, s_case), (SPEC_K + 1, v_case)):
-        ms, plain_ms, lib_ms, bound_ms, bound_by = time_kernel(arrays, cfg)
-        paged.append({"shape": list(arrays[0].shape), "K1": K1, "ms": ms,
+    for name, arrays, window, cap, launches in shapes:
+        ms, plain_ms, lib_ms, bound_ms, bound_by = time_paged(arrays, window,
+                                                              cap)
+        paged.append({"name": name, "shape": list(arrays[0].shape),
+                      "K1": int(arrays[0].shape[1]), "window": window,
+                      "cap": cap, "launches": launches, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by})
-        print(f"paged_decode at the serve shape, K1 = {K1}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
-    paged[0]["launches"] = runs["spike_fused"][0]["paged_decode"]
-    paged[1]["launches"] = spec["spike_fused"]["launches"]["paged_decode"]
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      **launch_plan_of(arrays)})
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"paged_decode {name} {list(arrays[0].shape)}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
+              f"{bound_ms:.5f} ms ({bound_by}), launches {launches}, "
+              f"plan {launch_plan_of(arrays)}", flush=True)
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": SOURCE["paged_decode"], "replaces": REPLACES["paged_decode"],
@@ -2163,9 +2575,13 @@ def main(argv) -> int:
         **{k: v for k, v in by_shape[0].items()
            if k not in ("shape", "tc_bound_ms")},
         "shape": by_shape[0]["shape"], "by_shape": by_shape})
+    clock.mark("kernel timings")
     # after every timing, so that the profiler's device tracing cannot
-    # touch one
+    # touch one; at the main path's full depth
+    del params
+    cfg, params = full_width(MAIN_ARCH)
     count_step_kernels("this checkout", cfg, params)
+    clock.mark("kernels per decode step")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(name)``; ``reduced.reduced(cfg)``.
 
-Only the architectures the port can run are registered; the others
-join with their model families.
+Only the architectures the port can run are registered (the dense
+attention family: ``qwen1.5-0.5b``, ``qwen1.5-4b``, ``gemma2-2b``,
+``granite-20b``); the others join with their model families.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ def register(fn):
 
 
 def _load_all():
-    from . import qwen1_5_0_5b  # noqa: F401
+    from . import (gemma2_2b, granite_20b, qwen1_5_0_5b,  # noqa: F401
+                   qwen1_5_4b)
 
 
 def get_config(name: str, **overrides) -> ModelConfig:

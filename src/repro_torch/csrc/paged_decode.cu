@@ -14,9 +14,18 @@
 // microsecond, so what the kernel can win is latency: how few dependent
 // trips to memory stand between launch and the last store.
 //
-// Design. Grid (slot, kv head); a block serves the g = Hq/Hkv query
-// heads of its kv head for all K1 query tokens (nq = K1*g rows), so a
-// GQA group shares every staged page.
+// Design. Grid (slot, kv head, row group). The nq = K1*g query rows of a
+// kv head (its g = Hq/Hkv query heads for all K1 query tokens) are split
+// into row groups of at most kRowCap rows, and a block serves one group,
+// so the rows of a group share every staged page and q, acc, p and m/l
+// scale with the rows of one block, not with the whole GQA group: an MQA
+// verify step (48 heads on one kv head, 192 rows) runs as 24 blocks of 8
+// rows per slot instead of one block that does not fit. Where B x Hkv
+// blocks leave SMs idle, the groups are halved while the grid still fits
+// one block per SM (gemma2-2b's 4 slots x 4 kv heads run 128 blocks of
+// one row at K1 = 4), and fewer rows a group are taken where a group
+// does not fit shared memory. A row's arithmetic does not depend on its
+// group: the groups only change which block computes it.
 // 1. The block reads the slot's list and query positions once, in the
 //    same round of loads as its queries, and keeps only the entries that
 //    hold a key some query may see (a valid pool row with a position
@@ -29,7 +38,8 @@
 //    reads page 0 fully masked, masked scores are -1e30 and m starts at
 //    -1e30 — which yields the oracle's uniform mean of page 0 and
 //    lse == -1e30. Rows are never dropped.
-// 2. The kept entries are dealt to the block's warps (up to 8) in turn.
+// 2. The kept entries are dealt to the block's warps in turn: as many
+//    warps as fit shared memory, up to 8 (3 for f32 pages at dh 256).
 //    Each warp streams its pages through a 2-stage cp.async ring in its
 //    own shared memory (16-byte copies where the rows allow), so the
 //    next page loads while this one is scored, and keeps its own running
@@ -54,6 +64,7 @@ using repro::warp_sum;
 
 constexpr float kNeg = -1e30f;
 constexpr int kMaxWarps = 8;
+constexpr int kRowCap = 8;  // query rows of one block, at most
 constexpr size_t kSmemLimit = 227 * 1024;
 
 __host__ __device__ inline size_t align16(size_t n) {
@@ -63,6 +74,7 @@ __host__ __device__ inline size_t align16(size_t n) {
 // Byte offsets of one block's shared memory, the same on host and device.
 struct Layout {
   size_t q, kv, acc, p, ml, ent, total;
+  // nq: the query rows of one block (one row group)
   __host__ __device__ Layout(int nw, int nq, int K1, int dh, int psz,
                              int ppc, int elem) {
     size_t o = 0;
@@ -111,16 +123,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_decode_kernel(
     float* __restrict__ o_out, int8_t* __restrict__ wire_out,
     float* __restrict__ scale_out, float* __restrict__ lse_out, int K1,
     int Hq, int Hkv, int dh, int P_loc, int psz, int ppc, int window,
-    float cap, float sm_scale, int encode_wire) {
+    float cap, float sm_scale, int encode_wire, int rpb) {
   const int b = blockIdx.x;
   const int h = blockIdx.y;            // kv head
   const int g = Hq / Hkv;              // query heads per kv head
-  const int nq = K1 * g;               // query rows of this block
+  // this block's rows r0 .. r0 + nq - 1 of the kv head's K1 * g; local
+  // row r is global row r0 + r <-> query token (r0 + r) / g, head
+  // h * g + (r0 + r) % g
+  const int r0 = blockIdx.z * rpb;
+  const int nq = min(rpb, K1 * g - r0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(nw, nq, K1, dh, psz, ppc, (int)sizeof(T));
+  const Layout L(nw, rpb, K1, dh, psz, ppc, (int)sizeof(T));
   float* q_s = reinterpret_cast<float*>(smem + L.q);
   T* kv_w = reinterpret_cast<T*>(smem + L.kv) + (size_t)warp * 4 * psz * dh;
   float* acc_all = reinterpret_cast<float*>(smem + L.acc);
@@ -137,11 +153,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_decode_kernel(
   int* hk_s = qp_s + K1;
   int* nkept_s = hk_s + K1;
 
-  // 1. queries (row r <-> query token r / g, head h*g + r % g), state,
-  //    positions and the list, all loads issued together; then which
-  //    entries hold a key some query may see
+  // 1. queries, state, positions and the list, all loads issued
+  //    together; then which entries hold a key some query token may see
   for (int i = tid; i < nq * dh; i += blockDim.x) {
-    const int r = i / dh, d = i % dh;
+    const int r = r0 + i / dh, d = i % dh;
     q_s[i] = q[((size_t)(b * K1 + r / g) * Hq + h * g + r % g) * dh + d];
   }
   for (int c = tid; c < ppc; c += blockDim.x) {
@@ -222,7 +237,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_decode_kernel(
     const int base = ent_pos[c];
     const int nch = dh / 4;
     for (int r = 0; r < nq; ++r) {
-      const int qp = qp_s[r / g];
+      const int qp = qp_s[(r0 + r) / g];
       const float* qr = q_s + (size_t)r * dh;
       float* pr = p_w + (size_t)r * psz;
       // scaled, capped, masked scores: a lane per key
@@ -310,7 +325,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) paged_decode_kernel(
       if (w < nw) l += ml_all[w * 2 * nq + nq + r] * e[w];
     }
     l = fmaxf(l, 1e-30f);
-    const size_t orow = (size_t)(b * K1 + r / g) * Hq + h * g + r % g;
+    const int R = r0 + r;
+    const size_t orow = (size_t)(b * K1 + R / g) * Hq + h * g + R % g;
     if (lane == 0) lse_out[orow] = m + logf(l);
     float* o_r = acc_all + (size_t)r * dh;  // warp 0's row r holds o
     float amax = 0.f;
@@ -340,6 +356,47 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The card's SM count (the current device's, read once).
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 1;
+  }
+  return n;
+}
+
+// Rows per block and warps per block of a launch over `heads` = B x Hkv
+// kv heads: row groups of at most kRowCap rows, halved while twice the
+// groups still give at most one block per SM, split evenly; fewer rows a
+// group while one warp's layout does not fit; then as many warps (up to
+// kMaxWarps) as fit. Returns false when even one row and one warp do not
+// fit.
+template <typename T>
+bool plan(int nq, int heads, int K1, int dh, int psz, int ppc, int* rpb,
+          int* nw) {
+  auto bytes = [&](int w, int rows) {
+    return Layout(w, rows, K1, dh, psz, ppc, (int)sizeof(T)).total;
+  };
+  auto blocks = [&](int rows) {
+    return (long long)heads * ((nq + rows - 1) / rows);
+  };
+  int rows = min(nq, kRowCap);
+  while (rows > 1 && blocks((rows + 1) / 2) <= sm_count())
+    rows = (rows + 1) / 2;
+  while (rows > 1 && bytes(1, rows) > kSmemLimit) rows = (rows + 1) / 2;
+  const int groups = (nq + rows - 1) / rows;
+  rows = (nq + groups - 1) / groups;
+  int w = kMaxWarps;
+  while (w > 1 && bytes(w, rows) > kSmemLimit) --w;
+  *rpb = rows;
+  *nw = w;
+  return bytes(w, rows) <= kSmemLimit;
+}
+
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* cl_page, const void* cl_pos, const void* qpos,
@@ -347,13 +404,12 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            int Hq, int Hkv, int dh, int P_loc, int psz, int ppc, int window,
            float cap, float sm_scale, int encode_wire, void* stream) {
   const int nq = K1 * (Hq / Hkv);
-  auto bytes = [&](int nw) {
-    return Layout(nw, nq, K1, dh, psz, ppc, (int)sizeof(T)).total;
-  };
-  int nw = kMaxWarps;
-  while (nw > 1 && bytes(nw) > kSmemLimit) nw >>= 1;
-  const size_t smem = bytes(nw);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
+  int rpb, nw;
+  if (!plan<T>(nq, B * Hkv, K1, dh, psz, ppc, &rpb, &nw))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      Layout(nw, rpb, K1, dh, psz, ppc, (int)sizeof(T)).total;
+  const int groups = (nq + rpb - 1) / rpb;
   const bool cp16 = dh * sizeof(T) % 16 == 0 && aligned16(k_pool) &&
                     aligned16(v_pool);
   auto kernel =
@@ -361,21 +417,38 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   static size_t granted[2] = {0, 0};
   const cudaError_t e = repro::allow_smem(kernel, smem, granted[cp16]);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(B, Hkv), nw * 32, smem, (cudaStream_t)stream>>>(
+  kernel<<<dim3(B, Hkv, groups), nw * 32, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(cl_page),
       static_cast<const int*>(cl_pos), static_cast<const int*>(qpos),
       static_cast<float*>(o), static_cast<int8_t*>(wire),
       static_cast<float*>(wscale), static_cast<float*>(lse), K1, Hq, Hkv, dh,
-      P_loc, psz, ppc, window, cap, sm_scale, encode_wire);
+      P_loc, psz, ppc, window, cap, sm_scale, encode_wire, rpb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Rows per block and warps per block the launch would take at a shape
+// (pool_bf16: 2-byte pages) on the current device, or 0 for a shape that
+// does not fit shared memory even at one row and one warp a block (the
+// wrapper refuses it before the launch).
+extern "C" int paged_decode_plan(int B, int K1, int Hq, int Hkv, int dh,
+                                 int psz, int ppc, int pool_bf16, int* rpb,
+                                 int* nw) {
+  if (B <= 0 || K1 <= 0 || Hkv <= 0 || Hq % Hkv != 0 || dh <= 0 ||
+      psz <= 0 || ppc < 0)
+    return 0;
+  const int nq = K1 * (Hq / Hkv);
+  return pool_bf16
+             ? plan<__nv_bfloat16>(nq, B * Hkv, K1, dh, psz, ppc, rpb, nw)
+             : plan<float>(nq, B * Hkv, K1, dh, psz, ppc, rpb, nw);
+}
+
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a shape the kernel does not take (dh not a
-// multiple of 4, or one warp's pages beyond the shared-memory limit).
+// multiple of 4, or one row and one warp beyond the shared-memory
+// limit).
 // The caller validated shapes, dtypes, devices and contiguity; o is
 // unused when encode_wire != 0, wire and wscale are unused when it is 0.
 extern "C" int paged_decode_launch(

@@ -9,7 +9,9 @@ from a numpy ``RandomState`` or built exactly:
 * paged decode: random pools and well-formed compacted lists (distinct
   pool rows, ascending positions) with each slot's queries at its write
   frontier, K1 = 1 to 4 queries a slot (``verify_mha_k1_4`` is the
-  speculative verify step's serve shape);
+  speculative verify step's serve shape; ``gemma2_local_*``,
+  ``granite_mqa_*`` and ``qwen4b_mha_k1_4`` the other registered
+  configs' decode and verify shapes);
 * ``lif_encode``: random activations, thresholds and scales; drives
   that land on and next to a half-integer tick count (where the IF
   encoder and the closed form part); zeros, -0.0, saturation and zero
@@ -83,7 +85,28 @@ CASES = {
     # 16 MHA heads of 64 over pages of 16
     "verify_mha_k1_4": (dict(seed=8, B=4, K1=4, Hq=16, Hkv=16, dh=64,
                              P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
+    # the other registered configs' decode (K1 = 1) and verify (K1 = 4)
+    # shapes over pages of 16: gemma2-2b's local layers (8 heads on 4 kv
+    # heads of 256, window 4096, softcap 50) with lists whose positions
+    # run past 4096, so the window masks whole pages; granite-20b's MQA
+    # (48 heads on one kv head of 128); qwen1.5-4b's 20 MHA heads of 128
+    "gemma2_local_k1": (dict(seed=10, B=4, K1=1, Hq=8, Hkv=4, dh=256,
+                             P_loc=96, psz=16, ppc=80), 4096, 50.0, ()),
+    "gemma2_local_k1_4": (dict(seed=11, B=4, K1=4, Hq=8, Hkv=4, dh=256,
+                               P_loc=96, psz=16, ppc=80), 4096, 50.0, ()),
+    "granite_mqa_k1": (dict(seed=12, B=4, K1=1, Hq=48, Hkv=1, dh=128,
+                            P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
+    "granite_mqa_k1_4": (dict(seed=13, B=4, K1=4, Hq=48, Hkv=1, dh=128,
+                              P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
+    "qwen4b_mha_k1_4": (dict(seed=14, B=4, K1=4, Hq=20, Hkv=20, dh=128,
+                             P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
 }
+
+
+#: the cases of the configs other than the main path's (their decode
+#: and verify shapes)
+ARCH_CASES = ("gemma2_local_k1", "gemma2_local_k1_4", "granite_mqa_k1",
+              "granite_mqa_k1_4", "qwen4b_mha_k1_4")
 
 
 def case_arrays(name):

@@ -15,7 +15,13 @@ partial quantized to int8 per (token, head): ``s = max(absmax,
 1e-6)/127``, ``round(o/s)`` (half to even).
 
 The CUDA kernel (``csrc/paged_decode.cu``) runs one block per (slot,
-kv head).  What bounds it on the card is memory: the K/V bytes of the
+kv head, row group): a kv head's K1 x Hq/Hkv query rows are split into
+groups of at most 8 — fewer while the grid would still fit one block
+per SM, or where a group does not fit shared memory — so that a wide
+GQA or MQA group (48 heads on one kv head at K1 = 4: 192 rows) neither
+overflows a block nor runs on a handful of blocks (``launch_plan``
+gives the rows and warps of a block at a shape).  What
+bounds it on the card is memory: the K/V bytes of the
 live pages, read once, plus q and the outputs, at the card's memory
 bandwidth — decode attention does about one operation per byte, and at
 the serve shape those bytes take under a microsecond, so the design
@@ -35,6 +41,7 @@ group's query heads and all K1 query tokens, and nothing but the
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -103,7 +110,28 @@ def _library():
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [P] * 10 + [I] * 9 + [Fl, Fl, I, I, P]
         fn.restype = ctypes.c_int
+        pl = lib.paged_decode_plan
+        pl.argtypes = [I] * 8 + [ctypes.POINTER(I)] * 2
+        pl.restype = I
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(B, K1, Hq, Hkv, dh, psz, ppc, pool_dtype=F32):
+    """``(rows per block, row groups, warps per block)`` the CUDA kernel
+    takes at a shape on the current card (it builds the kernel
+    library), or None where even one query row and one warp a block do
+    not fit shared memory."""
+    _library()
+    lib = build.load("paged_decode")
+    rpb, nw = ctypes.c_int(0), ctypes.c_int(0)
+    ok = lib.paged_decode_plan(B, K1, Hq, Hkv, dh, psz, ppc,
+                               int(pool_dtype == torch.bfloat16),
+                               ctypes.byref(rpb), ctypes.byref(nw))
+    if not ok:
+        return None
+    nq = K1 * (Hq // Hkv)
+    return rpb.value, -(-nq // rpb.value), nw.value
 
 
 def _require(cond: bool, msg: str):
@@ -143,6 +171,11 @@ def paged_decode_cuda(q, k_pool, v_pool, cl_page, cl_pos, qpos, *,
     _require(tuple(qpos.shape) == (B, K1), "qpos must be [B, K1]")
     _require(dh % 4 == 0, f"dh={dh} must be a multiple of 4")
     ppc = cl_page.shape[1]
+    _require(B == 0 or launch_plan(B, K1, Hq, Hkv, dh, psz, ppc,
+                                   k_pool.dtype) is not None,
+             f"K1={K1}, {Hq // Hkv} query heads a kv head, dh={dh}, pages "
+             f"of {psz} and {ppc} list entries do not fit one block's "
+             "shared memory even at one query row and one warp")
     lse = torch.empty((B, K1, Hq), dtype=F32, device=dev)
     if encode_wire:
         o = None

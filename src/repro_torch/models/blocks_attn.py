@@ -11,8 +11,11 @@ slot) attend over the serving engine's shared KV page pool: new K/V
 rows are written through the block table (``_paged_kv_write``) and the
 step attends either through the paged-decode kernel over the compacted
 page lists (the fused walk) or by gathering the full block table
-(``_paged_kv_gather``, the reference walk).  Unlike the reference's
-functional updates, pool writes happen in place.
+(``_paged_kv_gather``, the reference walk).  Without a block table a
+decode step runs over the dense per-slot cache of the single-request
+serve steps (``launch.serve``): ``cache[slot, pos]``, written only where
+the position lies inside the cache (``_dense_kv_write``).  Unlike the
+reference's functional updates, cache writes happen in place.
 
 In SNN mode (``hnn_mode="snn"``) the block outputs of prefill and of
 every MLP are spike-coded too (``_maybe_snn``).  The decode and verify
@@ -228,6 +231,23 @@ def _paged_kv_write(cache, bt, qpos, k_new, v_new, targets=None):
     return cache
 
 
+def _dense_kv_write(cache, pos, k_new, v_new):
+    """Write one new KV row per slot, [B, Hkv, dh], into the dense
+    per-slot cache {k, v} [B, Ss, Hkv, dh] at ``cache[b, pos[b]]``, in
+    place.  A position at or past the cache length (or negative) is not
+    written: the slot's row at the clipped position is written back with
+    its own value, as the reference's ``in_range`` / ``clip`` do, so no
+    host sync selects the rows."""
+    ck, cv = cache["k"], cache["v"]
+    B, Ss = ck.shape[:2]
+    bidx = torch.arange(B, device=ck.device)
+    loc = pos.clamp(0, Ss - 1).long()
+    sel = ((pos >= 0) & (pos < Ss))[:, None, None]
+    ck[bidx, loc] = torch.where(sel, k_new.to(ck.dtype), ck[bidx, loc])
+    cv[bidx, loc] = torch.where(sel, v_new.to(cv.dtype), cv[bidx, loc])
+    return cache
+
+
 def _paged_kv_gather(cache, bt):
     """Gather every slot's resident pages in position order.
 
@@ -296,22 +316,32 @@ def attn_verify_fwd(p, x, cache, qpos, ctx: Context, aux, kind="attn"):
     """Batched K1-token step: x [B, K1, D] — per slot the last committed
     token followed by K1 - 1 drafts (a decode step is K1 = 1); qpos
     [B, K1] the queries' absolute positions (a slot's base position plus
-    0..K1-1); cache {k, v} [P_loc + 1, psz, Hkv, dh] — the pool and its
-    sink row — written through ``aux["block_table"]``.
-    ``aux["page_list"]`` selects the kernel walk; ``aux["kv_write"]``
-    may carry precomputed ``paged_write_targets``.  KV for all K1 positions lands in the pool
-    before attention, so a rejected draft's rows stay behind the
-    committed position (never attended) until the next step overwrites
-    them.  Returns (x', cache)."""
+    0..K1-1).  Two cache layouts, as in the reference:
+
+      paged (serving engine): cache {k, v} [P_loc + 1, psz, Hkv, dh] —
+        the pool and its sink row — written through
+        ``aux["block_table"]``; ``aux["page_list"]`` selects the kernel
+        walk; ``aux["kv_write"]`` may carry precomputed
+        ``paged_write_targets``.  KV for all K1 positions lands in the
+        pool before attention, so a rejected draft's rows stay behind
+        the committed position (never attended) until the next step
+        overwrites them;
+      dense (no block table; decode only, K1 = 1): cache {k, v}
+        [B, Ss, Hkv, dh], the single-request serve path's, written at
+        ``cache[slot, pos]`` (``_dense_kv_write``) and attended by
+        ``common.decode_attention_partial`` over every cache entry at
+        or before the position.
+
+    Returns (x', cache)."""
     cfg = ctx.cfg
     d = attn_dims(cfg)
     dh = d["dh"]
     B, K1, _ = x.shape
     bt = aux.get("block_table")
-    if bt is None:
+    if bt is None and K1 != 1:
         raise NotImplementedError(
-            "dense per-slot decode cache: the port decodes over the paged "
-            "pool only (pass aux['block_table'])")
+            f"dense per-slot cache with K1 = {K1}: the port verifies over "
+            "the paged pool only (pass aux['block_table'])")
     h = common.norm(x, p["ln"], cfg.norm)
     h = boundary.wire_roundtrip(h, p["sp_in"], ctx.codec,
                                 consumers=_consumers(ctx, p, "wq", "wk", "wv"))
@@ -325,11 +355,19 @@ def attn_verify_fwd(p, x, cache, qpos, ctx: Context, aux, kind="attn"):
     q = _rope(cfg, q.reshape(B, K1, d["Hq"], dh), qpos)
     k_new = _rope(cfg, k_new.reshape(B, K1, d["Hkv"], dh), qpos)
     v_new = v_new.reshape(B, K1, d["Hkv"], dh)
-    cache = _paged_kv_write(cache, bt, qpos, k_new, v_new,
-                            aux.get("kv_write"))
     window = cfg.window if kind == "local" else 0
-    o = _paged_attn_combined(q, cache, bt, aux.get("page_list"), qpos, ctx,
-                             window, cfg.attn_softcap)
+    if bt is None:
+        pos = qpos[:, 0]
+        cache = _dense_kv_write(cache, pos, k_new[:, 0], v_new[:, 0])
+        o, lse = common.decode_attention_partial(
+            q[:, 0], cache["k"], cache["v"], pos=pos, shard_offset=0,
+            window=window, cap=cfg.attn_softcap)
+        o = _combine_partials(o, lse, ctx)[:, None]
+    else:
+        cache = _paged_kv_write(cache, bt, qpos, k_new, v_new,
+                                aux.get("kv_write"))
+        o = _paged_attn_combined(q, cache, bt, aux.get("page_list"), qpos,
+                                 ctx, window, cfg.attn_softcap)
     part = o.reshape(B, K1, d["Hq"] * dh).to(x.dtype) @ p["wo"]
     y = boundary.coded_psum(part, p["sp_out"], ctx.codec)
     if cfg.post_norm:

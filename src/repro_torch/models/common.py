@@ -133,6 +133,26 @@ def flash_attention(q, k, v, *, causal=True, window=0, cap=0.0,
 # ---------------------------------------------------------------------------
 
 
+def decode_attention_partial(q, k_shard, v_shard, *, pos, shard_offset,
+                             window=0, cap=0.0, kv_valid=None):
+    """One decode step over a shard of the KV cache: the K1 = 1 case of
+    ``verify_attention_partial``, as the reference builds it, so a
+    decode step and a verify step share one copy of the masking and
+    softmax math.
+
+    q [B, Hq, dh]; k_shard/v_shard [B, Ss, Hkv, dh]; pos the current
+    absolute position (an int, a 0-d tensor or [B] per-slot positions).
+    Returns (out [B, Hq, dh] locally normalised, lse [B, Hq]).
+    """
+    B = q.shape[0]
+    posb = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    o, lse = verify_attention_partial(
+        q[:, None], k_shard, v_shard, pos=posb[:, None],
+        shard_offset=shard_offset, window=window, cap=cap,
+        kv_valid=kv_valid)
+    return o[:, 0], lse[:, 0]
+
+
 def verify_attention_partial(q, k_shard, v_shard, *, pos, shard_offset,
                              window=0, cap=0.0, kv_valid=None):
     """K1-token attention step over a shard of the KV cache.

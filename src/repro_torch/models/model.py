@@ -8,9 +8,13 @@ passes loop over units (the reference scans them).
   forward_prefill : one right-padded prompt batch -> logits at the last
                     (or ``last_pos``) position + the prompt's KV
   forward_decode  : one token per slot over the serving engine's paged
-                    KV pool -> next-token logits (pool updated in place)
-  forward_verify  : K1 = spec_k + 1 tokens per slot over the same pool
+                    KV pool, or over the dense per-slot cache that
+                    forward_prefill returns -> next-token logits (cache
+                    updated in place)
+  forward_verify  : K1 = spec_k + 1 tokens per slot over the paged pool
                     -> logits at every position (speculative decoding)
+  forward_logits  : teacher-forced logits at every position of a token
+                    batch (the reference's ``make_logits_step``)
 """
 from __future__ import annotations
 
@@ -121,17 +125,40 @@ def forward_prefill(params, tokens, ctx: Context, last_pos=None):
     return logits, caches
 
 
-def _forward_paged(params, cache, tokens, qpos, ctx: Context, aux_extra):
-    """K1 tokens per slot over the paged KV pool: tokens [B, K1] int at
-    absolute positions qpos [B, K1] -> logits [B, K1, V] f32.  The new
-    K/V rows are written into the pool in place."""
+def forward_logits(params, tokens, ctx: Context):
+    """Teacher-forced logits of a [B, S] token batch at every position:
+    [B, S, V] f32, through the training path's coded boundaries (mode
+    ``train``) with no loss reduction and no cache, as the reference's
+    ``launch.serve.make_logits_step`` computes them.  Like the
+    reference's ``lm_logits_local`` it applies no ``final_softcap``."""
+    cfg = ctx.cfg
+    ctx = ctx.with_(mode="train")
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    aux = {"positions": positions}
+    x = embed_tokens(params, tokens)
+    for u in range(cfg.n_units):
+        unit_p = unit_slice(params["units"], u)
+        for i, kind in enumerate(cfg.pattern):
+            p = unit_p[f"pos{i}"]
+            x, _ = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
+            x = blocks_attn.mlp_fwd(p, x, ctx)
+    return lm_logits_local(params, x, ctx)
+
+
+def _forward_steps(params, cache, tokens, qpos, ctx: Context, aux_extra):
+    """K1 tokens per slot: tokens [B, K1] int at absolute positions qpos
+    [B, K1] -> logits [B, K1, V] f32.  Over the paged KV pool when
+    ``aux_extra`` carries a ``"block_table"``, else over the dense
+    per-slot cache (K1 = 1).  The new K/V rows are written in place."""
     cfg = ctx.cfg
     ctx = ctx.with_(mode="decode")
     aux = dict(aux_extra or {})
     x = embed_tokens(params, tokens).to(cfg.dtype)
-    kv0 = cache["pos0"]["kv"]["k"]
-    aux["kv_write"] = blocks_attn.paged_write_targets(
-        aux["block_table"], qpos, kv0.shape[1] - 1, kv0.shape[2])
+    if aux.get("block_table") is not None:
+        kv0 = cache["pos0"]["kv"]["k"]
+        aux["kv_write"] = blocks_attn.paged_write_targets(
+            aux["block_table"], qpos, kv0.shape[1] - 1, kv0.shape[2])
     for u in range(cfg.n_units):
         unit_p = unit_slice(params["units"], u)
         for i, kind in enumerate(cfg.pattern):
@@ -148,19 +175,27 @@ def _forward_paged(params, cache, tokens, qpos, ctx: Context, aux_extra):
 
 
 def forward_decode(params, cache, token, pos, ctx: Context, aux_extra=None):
-    """One decode step over the paged KV pool.
+    """One decode step.
 
-    token [B] int; pos [B] per-slot positions; cache
-    ``{"posI": {"kv": {"k", "v"}}}`` pool leaves [U, P, psz, Hkv, dh];
-    ``aux_extra`` carries ``"block_table"`` [B, PPS] and, for the kernel
-    walk, ``"page_list"`` ``(clp, clo)`` [B, 1, ppc].  The new K/V rows
-    are written into the pool in place.  Returns (logits [B, V] f32,
+    token [B] int; pos an int, a 0-d tensor or [B] per-slot positions.
+    Two cache layouts, as in the reference:
+
+      paged (serving engine): ``aux_extra`` carries ``"block_table"``
+        [B, PPS] and, for the kernel walk, ``"page_list"`` ``(clp,
+        clo)`` [B, 1, ppc]; cache ``{"posI": {"kv": {"k", "v"}}}`` pool
+        leaves [U, P, psz, Hkv, dh];
+      dense (single-request serve path, no block table): the same tree
+        with leaves [U, B, S, Hkv, dh], as ``forward_prefill`` returns
+        it; slot b writes ``cache[:, b, pos[b]]`` if ``pos[b] < S`` and
+        attends to every entry at or before ``pos[b]``.
+
+    The new K/V rows are written in place.  Returns (logits [B, V] f32,
     cache).
     """
     B = token.shape[0]
-    pos = pos.reshape(-1).expand(B)
-    logits = _forward_paged(params, cache, token[:, None], pos[:, None], ctx,
-                            aux_extra)
+    pos = torch.as_tensor(pos, device=token.device).reshape(-1).expand(B)
+    logits = _forward_steps(params, cache, token[:, None], pos[:, None],
+                            ctx, aux_extra)
     return logits[:, 0], cache
 
 
@@ -188,4 +223,4 @@ def forward_verify(params, cache, tokens, pos, ctx: Context, aux_extra=None,
     pos = pos.reshape(-1).expand(B)
     qpos = pos[:, None] + torch.arange(K1, dtype=pos.dtype,
                                        device=pos.device)[None, :]
-    return _forward_paged(params, cache, tokens, qpos, ctx, aux_extra), cache
+    return _forward_steps(params, cache, tokens, qpos, ctx, aux_extra), cache

@@ -53,7 +53,13 @@ def _jax_solo(codec, eos_id=None):
 
 
 def _run(codec, reqs, **kw):
-    jm = MODELS[codec]
+    return run_engine(MODELS[codec], reqs, **kw)
+
+
+def run_engine(jm, reqs, **kw):
+    """One port engine run of ``reqs`` ((rid, (prompt, new)) pairs) on
+    ``jm``'s port parameters; every page and slot free at the end.
+    Returns (streams, engine)."""
     ecfg = EngineConfig(num_slots=SLOTS, max_seq=MAX_SEQ,
                         prefill_len=PREFILL, page_size=PSZ, **kw)
     eng = ServingEngine(jm.tcfg, jm.tparams, ecfg, device="cpu")
@@ -82,6 +88,20 @@ def _check_schedule(codec, **kw):
         if toks == batched[i]:
             np.testing.assert_allclose(eng.margins[i], margins, atol=1e-5)
     return batched, eng
+
+
+def check_streams_match_jax(jm, schedule=SCHEDULE):
+    """The port engine's greedy streams of ``schedule`` on ``jm``: both
+    walks give the same streams, and each equals its JAX solo greedy
+    loop (``JaxModel.greedy_solo``) under the margin rule."""
+    reqs = list(enumerate(schedule))
+    batched, _ = run_engine(jm, reqs)
+    ref, _ = run_engine(jm, reqs, attn_kernel="reference")
+    assert ref == batched
+    for i, (p, m) in reqs:
+        assert len(batched[i]) == m
+        toks, margins = jm.greedy_solo(p, m)
+        assert_greedy_agrees(toks, margins, batched[i])
 
 
 @pytest.mark.parametrize("codec", ["spike_fused", "none", "spike",

@@ -48,6 +48,17 @@ no JAX, so it collects where only PyTorch is installed.
   those served without it.
 * Paged decode at the speculative verify step's serve shape (K1 = 4,
   16 heads of 64, an allocator's lists) against its plain version.
+* Paged decode at every decode (K1 = 1) and verify (K1 = 4) shape of
+  the four registered configs (gemma2-2b's 8 heads on 4 kv heads of
+  256 with its window and softcap, granite-20b's 48 heads on one kv
+  head, qwen1.5-4b's 20 heads of 128), f32 and bf16 pools, against its
+  plain version and bit for bit on a second launch, as on the new
+  conformance cases; every such shape has a launch plan (granite-20b's
+  f32 verify step among them, 192 query rows a kv head), and a shape
+  that fits no block is refused with ``ValueError`` before any launch.
+* The dense per-slot decode of ``launch.serve`` on the card: the
+  quickstart's prefill and decode steps equal the plain path's on the
+  CPU.
 * Speculative decoding with the n-gram drafter on the card: launch
   counts per verify step, every page free, and in ANN mode the
   ``spec_k=0`` streams under the margin rule.  Sampled serving
@@ -68,8 +79,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cases import (  # noqa: E402
-    CASES, COUNT_MATMUL_RAGGED_SHAPES, COUNT_MATMUL_SHAPES, LIF_CASES,
-    LIF_TAIL_CASES, PACK4_CASES, PACK4_TAIL_CASES, UNPACK4_LOG_SCALES,
+    ARCH_CASES, CASES, COUNT_MATMUL_RAGGED_SHAPES, COUNT_MATMUL_SHAPES,
+    LIF_CASES, LIF_TAIL_CASES, PACK4_CASES, PACK4_TAIL_CASES, UNPACK4_LOG_SCALES,
     case_arrays, count_matmul_agrees, count_matmul_case, lif_tensors,
     pack4_case, pack4_counts_case, rand_case, to_tensors, unpack4_log_scale)
 from repro_torch.kernels.count_matmul import count_matmul_plain  # noqa: E402
@@ -725,3 +736,162 @@ def test_engine_on_card_commit_waits_for_its_event():
         eng._retired = []
     assert results == ref
     assert queued > 0 and _drained(eng)
+
+
+ARCHS = ("qwen1.5-0.5b", "gemma2-2b", "granite-20b", "qwen1.5-4b")
+
+
+@pytest.mark.parametrize("wire", [False, True])
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ARCH_CASES)
+def test_arch_cases_repeat_bit_for_bit_on_card(name, pool_dtype, wire):
+    _require_cuda()
+    arrays, window, cap = case_arrays(name)
+    ts = to_tensors(arrays, "cuda", getattr(torch, pool_dtype))
+    kw = dict(window=window, cap=cap, encode_wire=wire)
+    a = ops.paged_flash_decode(*ts, **kw)
+    b = ops.paged_flash_decode(*ts, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _arch_shape(arch, K1, seed):
+    """Random pools at ``arch``'s attention dims, pages of 16, and the
+    lists an allocator builds for four slots of 40-250 tokens, each
+    querying its last K1 positions; the local window and softcap."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks_attn import attn_dims
+    from repro_torch.serving.kv_cache import SlotAllocator
+    cfg = get_config(arch)
+    d = attn_dims(cfg)
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(40, 251, 4)
+    alloc = SlotAllocator(4, 256, 16)
+    for L in lens:
+        alloc.alloc(int(L))
+    shape = (alloc.num_pages, 16, d["Hkv"], d["dh"])
+    arrays = (rng.standard_normal((4, K1, d["Hq"], d["dh"])).astype(
+        np.float32),
+        rng.standard_normal(shape).astype(np.float32),
+        rng.standard_normal(shape).astype(np.float32),
+        alloc.page_list_loc[:, 0].copy(), alloc.page_list_pos[:, 0].copy(),
+        (lens[:, None] - K1 + np.arange(K1)).astype(np.int32))
+    window = cfg.window if "local" in cfg.pattern else 0
+    return arrays, window, cfg.attn_softcap
+
+
+@pytest.mark.parametrize("K1", [1, 4])
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_decode_served_arch_shapes_on_card(arch, pool_dtype, K1):
+    """Each registered config's decode and verify shape: within 2e-5 of
+    the plain version, the wire within one step, and the same bits on a
+    second launch."""
+    _require_cuda()
+    arrays, window, cap = _arch_shape(arch, K1, seed=K1)
+    ts = to_tensors(arrays, "cuda", getattr(torch, pool_dtype))
+    kw = dict(window=window, cap=cap)
+    o, lse = ops.paged_flash_decode(*ts, **kw)
+    po, plse = paged_decode_plain(*ts, **kw)
+    torch.testing.assert_close(o, po, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, plse, rtol=2e-5, atol=2e-5)
+    o2, lse2 = ops.paged_flash_decode(*ts, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    w, s, lse_w = ops.paged_flash_decode(*ts, encode_wire=True, **kw)
+    pw, ps, _ = paged_decode_plain(*ts, encode_wire=True, **kw)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=0.0)
+    assert int((w.int() - pw.int()).abs().max()) <= 1
+    assert torch.equal(lse_w, lse)
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launch_plan_takes_every_served_shape(arch, pool_dtype):
+    """Every decode and verify shape of the registered configs (four
+    slots) has a launch plan: at most 8 query rows a block, at least one
+    warp."""
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_decode import launch_plan
+    from repro_torch.models.blocks_attn import attn_dims
+    d = attn_dims(get_config(arch))
+    for K1 in (1, 4):
+        plan = launch_plan(4, K1, d["Hq"], d["Hkv"], d["dh"], 16, 16,
+                           getattr(torch, pool_dtype))
+        assert plan is not None, (arch, K1)
+        rows, groups, warps = plan
+        nq = K1 * d["Hq"] // d["Hkv"]
+        assert rows <= 8 and 1 <= warps <= 8
+        assert (groups - 1) * rows < nq <= groups * rows
+
+
+def test_granite_f32_verify_step_launches_on_card():
+    """48 query heads on one kv head at K1 = 4 from an f32 pool: 192
+    rows, which one block cannot hold, run as 24 groups of 8 (four
+    slots: 96 blocks, which halving would take past one a SM)."""
+    _require_cuda()
+    from repro_torch.kernels.paged_decode import launch_plan
+    assert launch_plan(4, 4, 48, 1, 128, 16, 16, torch.float32)[:2] == (
+        8, 24)
+    arrays, window, cap = case_arrays("granite_mqa_k1_4")
+    ts = to_tensors(arrays, "cuda", torch.float32)
+    o, lse = ops.paged_flash_decode(*ts)
+    torch.testing.assert_close(o, paged_decode_plain(*ts)[0], rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_paged_decode_refuses_a_shape_that_fits_no_block():
+    """Heads of 4096 f32 values: one warp's two stages of K and V pages
+    alone exceed shared memory, so the wrapper raises before launching."""
+    _require_cuda()
+    from repro_torch.kernels import paged_decode as PD
+    arrays = rand_case(seed=0, B=1, K1=1, Hq=1, Hkv=1, dh=4096, P_loc=2,
+                       psz=16, ppc=1)
+    ts = to_tensors(arrays, "cuda")
+    before = ops.paged_flash_decode.launches
+    with pytest.raises(ValueError):
+        ops.paged_flash_decode(*ts)
+    assert ops.paged_flash_decode.launches == before
+    assert PD.launch_plan(1, 1, 1, 1, 4096, 16, 1) is None
+
+
+def test_dense_decode_steps_on_card_match_the_cpu():
+    """``launch.serve`` on the card: a [2, 32] prefill of reduced
+    gemma2-2b (f32, codec ``none``) and four decode steps at
+    pos = 31 + t over its dense cache, against the same steps on the
+    CPU (logits within 1e-4: the card's matmuls sum in other orders)."""
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.launch import serve as SV
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config("gemma2-2b", hnn_mode="ann",
+                             codec="none")).replace(dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+    cpu = _to_cpu(params)
+    tok = np.random.RandomState(0).randint(0, cfg.vocab, (2, 32))
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", cpu)):
+        pre = SV.make_prefill_step(cfg, device=dev)
+        dec = SV.make_decode_step(cfg, device=dev)
+        logits, cache = pre(p, {"tokens": torch.tensor(tok, device=dev)})
+        seq = [logits]
+        nxt = SV.greedy_sample(logits)
+        for t in range(4):
+            if dev == "cpu":
+                nxt = out["cuda_tokens"][t].cpu()
+            logits, cache = dec(p, cache, nxt, 31 + t)
+            seq.append(logits)
+            if dev == "cuda":
+                out.setdefault("cuda_tokens", []).append(nxt)
+                nxt = SV.greedy_sample(logits)
+        out[dev] = [x.cpu() for x in seq]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()

@@ -87,13 +87,17 @@ CODECS = (("ann", "none"), ("hnn", "spike_fused"), ("hnn", "spike"),
 class JaxModel:
     """The JAX reference at one codec: params, the port's copy of them,
     and the model-level prefill / insert / decode steps (jit-compiled
-    lazily, once per process)."""
+    lazily, once per process).  ``arch`` names the reduced architecture
+    (``ARCH`` by default); ``overrides`` are config fields replaced on
+    both sides alike (a GQA-keeping variant, say)."""
 
-    def __init__(self, hnn, codec, dtype="float32"):
-        self.jcfg = jax_reduced(jax_get_config(ARCH, hnn_mode=hnn)).replace(
-            codec=codec, dtype=getattr(jnp, dtype))
-        self.tcfg = reduced(get_config(ARCH, hnn_mode=hnn)).replace(
-            codec=codec, dtype=getattr(torch, dtype))
+    def __init__(self, hnn, codec, dtype="float32", arch=ARCH,
+                 overrides=None):
+        over = dict(overrides or {})
+        self.jcfg = jax_reduced(jax_get_config(arch, hnn_mode=hnn)).replace(
+            codec=codec, dtype=getattr(jnp, dtype), **over)
+        self.tcfg = reduced(get_config(arch, hnn_mode=hnn)).replace(
+            codec=codec, dtype=getattr(torch, dtype), **over)
         mesh = self.mesh = make_mesh((1, 1), ("data", "model"))
         plan = SP.make_plan(self.jcfg, ShapeCell("serve_decode", MAX_SEQ,
                                                  SLOTS, "decode"), mesh)
@@ -237,12 +241,63 @@ def assert_greedy_agrees(ref_tokens, ref_margins, tokens):
     assert len(ref_tokens) == len(tokens), (ref_tokens, tokens)
 
 
+#: the parameter leaves the seeded init leaves at zero (biases, and the
+#: norm scales, used as ``1 + scale``), so that no test would see one
+#: dropped or misplaced
+ZERO_INIT_LEAVES = ("bq", "bk", "bv", "ln", "ln2", "post_ln", "post_ln2",
+                    "final_ln")
+
+
+def seed_zero_init_leaves(jm, seed=16, scale=0.1):
+    """Give every ``ZERO_INIT_LEAVES`` leaf of ``jm``'s JAX parameters
+    seeded nonzero values (``seeded_leaves``), then carry the tree
+    across to the port again."""
+    jm.params = seeded_leaves(jm.params, seed, scale)
+    jm.tparams = params_from_jax(jax.tree.map(np.asarray, jm.params),
+                                 jm.tcfg, device="cpu")
+    return jm
+
+
+def seeded_leaves(params, seed=16, scale=0.1):
+    """A JAX parameter tree whose ``ZERO_INIT_LEAVES`` leaves hold
+    ``scale`` x standard normal values (numpy ``seed``, in sorted path
+    order), each with its old leaf's dtype and sharding."""
+    rng = np.random.RandomState(seed)
+
+    def visit(tree):
+        out = {}
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                out[k] = visit(v)
+            elif k in ZERO_INIT_LEAVES:
+                new = (scale * rng.standard_normal(v.shape)).astype(
+                    np.float32)
+                out[k] = jax.device_put(jnp.asarray(new, v.dtype),
+                                        v.sharding)
+            else:
+                out[k] = v
+        return out
+
+    return visit(params)
+
+
 class _Models(dict):
-    """codec -> ``JaxModel``, each built (and compiled) on first use."""
+    """codec -> ``JaxModel``, each built (and compiled) on first use, of
+    ``arch`` with ``overrides``; ``seeded`` gives the zero-init leaves
+    seeded values (``seed_zero_init_leaves``)."""
+
+    def __init__(self, arch=ARCH, overrides=None, seeded=False):
+        super().__init__()
+        self.arch, self.overrides, self.seeded = arch, overrides, seeded
 
     def __missing__(self, codec):
         hnn = {c: h for h, c in CODECS}[codec]
-        model = self[codec] = JaxModel(hnn, codec)
+        model = JaxModel(hnn, codec, arch=self.arch,
+                         overrides=self.overrides)
+        if self.seeded:
+            seed_zero_init_leaves(model)
+        self[codec] = model
         return model
 
 
@@ -299,10 +354,12 @@ def check_prefill(jm):
                                    rtol=0)
         if margin(jl) > MARGIN:
             assert int(np.argmax(jl)) == int(torch.argmax(tl[0]))
-        for n in ("k", "v"):
-            np.testing.assert_allclose(
-                tpre["pos0"]["kv"][n].numpy(),
-                np.asarray(jpre["pos0"]["kv"][n]), atol=1e-5, rtol=1e-5)
+        for i in range(len(jm.tcfg.pattern)):
+            for n in ("k", "v"):
+                np.testing.assert_allclose(
+                    tpre[f"pos{i}"]["kv"][n].numpy(),
+                    np.asarray(jpre[f"pos{i}"]["kv"][n]), atol=1e-5,
+                    rtol=1e-5)
 
 
 @pytest.mark.parametrize("codec", [c for _, c in CODECS])
@@ -354,11 +411,12 @@ def assert_pools_close(tcache, jcache):
     """The port's pool pages equal JAX's (the port's last pool row is
     the sink of dropped writes, which JAX has no counterpart of)."""
     for kernel in jcache:
-        for n in ("k", "v"):
-            np.testing.assert_allclose(
-                tcache[kernel].buffers["pos0"]["kv"][n][:, :NUM_PAGES].numpy(),
-                np.asarray(jcache[kernel]["pos0"]["kv"][n]),
-                atol=1e-5, rtol=1e-5)
+        for pos in jcache[kernel]:
+            for n in ("k", "v"):
+                np.testing.assert_allclose(
+                    tcache[kernel].buffers[pos]["kv"][n][:, :NUM_PAGES]
+                    .numpy(), np.asarray(jcache[kernel][pos]["kv"][n]),
+                    atol=1e-5, rtol=1e-5)
 
 
 def check_teacher_forced(jm):

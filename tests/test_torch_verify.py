@@ -50,7 +50,14 @@ CODECS = ("none", "spike_fused", "spike", "spike_pack4", "sparse_topk")
 
 @pytest.mark.parametrize("codec", CODECS)
 def test_forward_verify_matches_jax(codec):
-    jm = MODELS[codec]
+    check_verify(MODELS[codec])
+
+
+def check_verify(jm):
+    """Three K1-token verify steps of three slots over one pool, both
+    walks, port vs JAX's model-level ``forward_verify``: logits, then
+    the pools.  Between steps the slots advance 1, 2 or 4 positions and
+    the allocator rolls the rejected tail back."""
     rng = np.random.RandomState(13)
     ctx = make_context(jm.tcfg)
     alloc, jcache, tcache, pos = three_slots(jm, rng, ctx)
