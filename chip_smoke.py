@@ -121,7 +121,28 @@ on failure:
    52 layers (its full depth, 105 GiB in float32, does not fit one card)
    serves them under ``none`` and ``spike_fused``, each at ``spec_k`` 0
    and 3, every live paged-decode launch held to its plain version;
-10. time the launch floor (a one-element ``zero_()``) and each kernel,
+10. training: the boundaries' backward kernels — K1 ``roundtrip_bwd``
+   (f32 and bf16) and K2 ``lif_encode_bwd`` (f32) — against their
+   plain versions at [1024, 1024] (the training runs' boundary, one
+   microbatch), [2048, 1024] and [37, 1024] (K1's dx bit-equal, its
+   sums within 1e-5 of their terms' magnitudes, each K2 output element
+   within 1e-5 of itself plus 1e-6 of the output's largest entry, both
+   the same bits twice); then full-width ``qwen1.5-0.5b`` (all 24 layers, f32,
+   seeded init) trains ``TRAIN_STEPS`` = 30 AdamW steps (lr 1e-3,
+   warmup 5, two microbatches of 4 x 256 ``SyntheticLM`` tokens) under
+   ``none`` (ANN), ``spike_fused``, ``spike``, ``spike_pack4`` and
+   ``spike_fused+bwd8``: every loss and grad norm finite, the loss
+   down by at least 1 nat (the last 5 steps' mean against step 0),
+   every layer's boundary thetas and log-scales moved by the first step
+   under the spike codecs, each step's launches those the path predicts
+   (``train_launches``), and under every spike codec one step's
+   gradients with the kernels, leaf by leaf, within 1e-5 of the leaf's
+   largest entry of those with the plain versions; each step's loss, penalty, occupancy,
+   firing rate and time, the median step and the peak memory printed;
+   then ``train_cli.main`` in this process (reduced config): a resume
+   from its step-4 checkpoint gives the losses of an uninterrupted
+   6-step run within 1e-4;
+11. time the launch floor (a one-element ``zero_()``) and each kernel,
    its plain version and its bound at the shapes the serve path gives
    it (``lif_encode`` in both compute types at the decode and the
    prefill rows, with and without the epilogue; ``pack4`` from both
@@ -139,8 +160,9 @@ on failure:
    line (paged decode's entry at the main path's decode shape, and
    under ``by_shape`` at every served decode and verify shape of the
    four configs and on the other configs' conformance cases, each with
-   its launches, rows per block, row groups and warps);
-11. print ``{"ok": true, "device": {...}}`` as the last line.
+   its launches, rows per block, row groups and warps; K1 and K2 at
+   their checked shapes, their launches the ``spike`` training run's);
+12. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result.  It imports nothing of JAX.
@@ -1357,7 +1379,8 @@ def expected_launches(codec, walk, eng, shadow=False):
     want = {"paged_decode": L * steps if walk == "fused" else 0,
             "lif_encode": 0, "pack4": 0, "unpack4": 0,
             "count_matmul": (L * SHADOW_WEIGHTS * (steps + pre)
-                             if shadow else 0)}
+                             if shadow else 0),
+            "roundtrip_bwd": 0, "lif_encode_bwd": 0}
     if codec == "spike":
         want["lif_encode"] = 4 * L * (steps + pre) + snn_roundtrips(eng)
     if codec == "spike_pack4":
@@ -2244,6 +2267,411 @@ def count_step_kernels(label, cfg, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# training: the boundaries' backward kernels and full-width train steps
+# ---------------------------------------------------------------------------
+
+#: the backward kernels' check shapes: the training runs' boundary (one
+#: microbatch, 4 x 256 tokens of d_model 1024; the kernels line's
+#: numbers), a whole batch of 8 x 256 tokens, and a ragged row count
+TRAIN_SHAPES = ((1024, 1024), (2048, 1024), (37, 1024))
+#: (hnn_mode, codec) of each training run
+TRAIN_CODECS = (("ann", "none"), ("hnn", "spike_fused"), ("hnn", "spike"),
+                ("hnn", "spike_pack4"), ("hnn", "spike_fused+bwd8"))
+TRAIN_STEPS = 30
+TRAIN_MICRO = 2
+TRAIN_DATA = dict(vocab=256, seq_len=256, global_batch=8, seed=0)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+#: how far (nats) the mean loss of the last 5 steps must lie below step 0's
+TRAIN_MIN_DROP = 1.0
+#: the boundaries of a layer, each with a learned theta and log_scale
+BOUNDARIES = ("sp_in", "sp_out", "sp_in2", "sp_out2")
+TRAIN_REPLACES = {
+    "roundtrip_bwd": "src/repro/core/spike.py:309 (spike.roundtrip_vjp, "
+                     "jnp; no pallas_call)",
+    "lif_encode_bwd": "src/repro/core/spike.py:196 (jax.grad of "
+                      "lif_rate_encode_signed, jnp; no pallas_call)"}
+TRAIN_SOURCE = {"roundtrip_bwd": "src/repro_torch/csrc/roundtrip_bwd.cu",
+                "lif_encode_bwd": "src/repro_torch/csrc/lif_encode.cu"}
+#: where the training phase runs (a CPU rehearsal sets "cpu")
+TRAIN_DEVICE = "cuda"
+#: the training path's backward kernels (K1, K2)
+TRAIN_KERNELS = ("roundtrip_bwd", "lif_encode_bwd")
+
+
+def backward_inputs(M, C, dtype, seed):
+    """x, g [M, C] in ``dtype``; theta in [0, 0.3), s = exp(log_scale),
+    log_scale in [-1, 1), [C] float32: a boundary's backward inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(M, C, generator=gen, device="cuda") * 0.8).to(dtype)
+    g = torch.randn(M, C, generator=gen, device="cuda").to(dtype)
+    theta = 0.3 * torch.rand(C, generator=gen, device="cuda")
+    s = torch.exp(2 * torch.rand(C, generator=gen, device="cuda") - 1)
+    return x, g, theta, s
+
+
+def check_train_kernels():
+    """K1 (``roundtrip_bwd``) and K2 (``lif_encode_bwd``) against their
+    plain versions on the training shapes: K1 in f32 and bf16, its dx
+    bit-equal, dtheta and dlog_scale within 1e-5 x the sum of their
+    terms' magnitudes per channel; K2 (f32) each output element within
+    ``k2_close``; both the same bits on a second launch.  Returns
+    ({kernel: max abs err}, {kernel: [(args, kw)]} samples to time)."""
+    from repro_torch.kernels import lif_encode as LE
+    from repro_torch.kernels import roundtrip_bwd as RB
+    errs = {k: 0.0 for k in TRAIN_KERNELS}
+    samples = {k: [] for k in TRAIN_KERNELS}
+    for i, (M, C) in enumerate(TRAIN_SHAPES):
+        for dt in (torch.float32, torch.bfloat16):
+            x, g, theta, s = backward_inputs(M, C, dt, 10 + i)
+            args, kw = (x, g, theta, s, s / 15), {"T": 15}
+            got = RB.roundtrip_bwd_cuda(*args, **kw)
+            again = RB.roundtrip_bwd_cuda(*args, **kw)
+            dx, dth, dls = RB.roundtrip_bwd_terms(*args, **kw)
+            torch.cuda.synchronize()
+            if not same_bits(got, again):
+                raise AssertionError("roundtrip_bwd: two launches differ")
+            if not same_bits(got[0], dx):
+                raise AssertionError(f"roundtrip_bwd {M}x{C} {dt}: dx differs "
+                                     "from the plain version's bits")
+            for out, terms, name in ((got[1], dth, "dtheta"),
+                                     (got[2], dls, "dlog_scale")):
+                err = (out - terms.sum(0)).abs()
+                if (err > 1e-5 * terms.abs().sum(0)).any():
+                    raise AssertionError(f"roundtrip_bwd {M}x{C} {dt}: {name} "
+                                         f"off by {float(err.max()):.3g}")
+                errs["roundtrip_bwd"] = max(errs["roundtrip_bwd"],
+                                            float(err.max()))
+            samples["roundtrip_bwd"].append((args, kw))
+        x, g, theta, s = backward_inputs(M, C, torch.float32, 20 + i)
+        args = (x / s, theta / s, g)
+        got = LE.lif_encode_bwd_cuda(*args, T=15)
+        again = LE.lif_encode_bwd_cuda(*args, T=15)
+        want = LE.lif_encode_bwd_plain(*args, T=15)
+        torch.cuda.synchronize()
+        if not same_bits(got, again):
+            raise AssertionError("lif_encode_bwd: two launches differ")
+        for a, w, name in zip(got, want, ("dxn", "dthn")):
+            if not k2_close(a, w):
+                raise AssertionError(
+                    f"lif_encode_bwd {M}x{C}: {name} off by "
+                    f"{float((a - w).abs().max()):.3g} (largest entry "
+                    f"{float(w.abs().max()):.3g})")
+            errs["lif_encode_bwd"] = max(errs["lif_encode_bwd"],
+                                         float((a - w).abs().max()))
+        samples["lif_encode_bwd"].append((args, {"T": 15}))
+    return errs, samples
+
+
+
+def k2_close(a, w):
+    """K2's bound, per element of one output: |a - w| <= 1e-5 |w| +
+    1e-6 max |w| (the surrogate chain makes a few entries ~1e6 times the
+    typical one, so a bound on the largest entry alone would pass a
+    wrong typical entry)."""
+    return bool(((a - w).abs() <= 1e-5 * w.abs()
+                 + 1e-6 * w.abs().max()).all())
+
+
+def time_train_kernels(samples, flush):
+    """(kernel, plain, bound ms, bound_by) of each backward kernel at
+    each checked shape."""
+    from repro_torch.kernels import lif_encode as LE
+    from repro_torch.kernels import roundtrip_bwd as RB
+    fns = {"roundtrip_bwd": (RB.roundtrip_bwd_cuda, RB.roundtrip_bwd_plain),
+           "lif_encode_bwd": (LE.lif_encode_bwd_cuda,
+                              LE.lif_encode_bwd_plain)}
+    out = {}
+    for name, cases in samples.items():
+        kernel, plain = fns[name]
+        for args, kw in cases:
+            x = args[0]
+            M, C = x.shape
+            if name == "roundtrip_bwd":
+                # x, g read, dx written; theta, s, s/T read, dth, dls
+                # written; ~25 operations an element
+                n_bytes = 3 * M * C * x.element_size() + 5 * C * 4
+                ops = 25 * M * C
+            else:
+                # xn, g read, dxn, dthn written, thn read; each of the
+                # two populations' T ticks: 5 forward, 10 backward ops
+                n_bytes = 4 * M * C * 4 + C * 4
+                ops = (2 * kw["T"] * 15 + 16) * M * C
+            b_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            b_ops = ops / F32_FLOP_PER_S * 1e3
+            key = f"{name} [{M},{C}] {str(x.dtype)[6:]}"
+            out[key] = (cuda_ms(lambda: kernel(*args, **kw), flush),
+                        cuda_ms(lambda: plain(*args, **kw), flush),
+                        max(b_bytes, b_ops),
+                        "bytes" if b_bytes >= b_ops else "operations")
+    return out
+
+
+def train_launches(codec, n_layers, n_micro):
+    """Kernel launches of one train step: per layer and microbatch,
+    ``roundtrip_bwd`` at each of the 4 coded collectives' backward under
+    a spike codec; under ``spike``, ``lif_encode_bwd`` at each of the 2
+    boundary penalties' backward, and ``lif_encode`` at the 4 coded
+    collectives and the 2 penalties, in the forward and again in the
+    per-block recompute of the backward; under ``spike_pack4``,
+    ``pack4`` and ``unpack4`` at the 4 coded collectives, forward and
+    recompute."""
+    want = {k: 0 for k in ("paged_decode", "lif_encode", "count_matmul",
+                           "pack4", "unpack4") + TRAIN_KERNELS}
+    n = n_layers * n_micro
+    mode = codec.split("+")[0]
+    if mode in ("spike", "spike_fused", "spike_pack4"):
+        want["roundtrip_bwd"] = 4 * n
+    if mode == "spike":
+        want["lif_encode_bwd"] = 2 * n
+        want["lif_encode"] = 2 * 6 * n
+    if mode == "spike_pack4":
+        want["pack4"] = want["unpack4"] = 2 * 4 * n
+    return want
+
+
+def plain_backward_patches():
+    """Patches that send the training path's kernels to their plain
+    versions (the launch counts still move: compare outside a counted
+    run)."""
+    from repro_torch.kernels import lif_encode as LE
+    from repro_torch.kernels import pack4 as PK
+    from repro_torch.kernels import roundtrip_bwd as RB
+    plain = lambda fn: (lambda orig, *a, **kw: fn(*a, **kw))  # noqa: E731
+    return [_Patch(RB, "roundtrip_bwd_cuda", plain(RB.roundtrip_bwd_plain)),
+            _Patch(LE, "lif_encode_bwd_cuda", plain(LE.lif_encode_bwd_plain)),
+            _Patch(LE, "lif_encode_cuda", plain(LE.lif_encode_plain)),
+            _Patch(PK, "pack4_counts_cuda", plain(PK.pack4_counts_plain)),
+            _Patch(PK, "unpack4_decode_cuda",
+                   plain(PK.unpack4_decode_plain))]
+
+
+def grads_against_plain(cfg, params, batch):
+    """One train step's gradients with the kernels and with their plain
+    versions on the same params and batch: the largest ratio over the
+    leaves of a leaf's largest difference to its largest entry (0 where
+    both are 0), and the global gradient norm."""
+    from repro_torch.launch import train as TT
+    from repro_torch.optim.adamw import tree_leaves
+    step = TT.make_train_step(cfg, microbatches=TRAIN_MICRO,
+                              with_optimizer=False, device=TRAIN_DEVICE)
+    _, g_k, _ = step(params, batch)
+    with contextlib.ExitStack() as stack:
+        for patch in plain_backward_patches():
+            stack.enter_context(patch)
+        _, g_p, _ = step(params, batch)
+    norm = float(TT.global_grad_norm(g_k))
+    worst = 0.0
+    for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
+        diff, top = float((a - b).abs().max()), float(b.abs().max())
+        worst = max(worst, diff / top if top else (0.0 if diff == 0
+                                                    else float("inf")))
+    return worst, norm
+
+
+def train_run(hnn, codec, data):
+    """``TRAIN_STEPS`` AdamW steps of full-width qwen1.5-0.5b (all its
+    layers, f32, seeded init) under one codec: losses, penalties,
+    occupancies and firing rates per step, the median step time, the
+    peak memory, the launches per step; raises if a loss or grad norm
+    is not finite, if the loss does not fall by 1 nat (the mean of the
+    last 5 steps against step 0), if a boundary's theta or log_scale
+    has not moved after the first step under a spike codec, if a
+    kernel's launches per step are not the path's, or if, under a spike
+    codec, a leaf of the kernels' gradients parts from the plain
+    versions' by more than 1e-5 of that leaf's largest entry."""
+    from repro_torch.core import spike
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TT
+    from repro_torch.optim import adamw
+    # the run's own memory: above what earlier phases still hold
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = full_width(MAIN_ARCH)
+    cfg = cfg.replace(hnn_mode=hnn, codec=codec)
+    coded = codec != "none"
+    label = f"{hnn}/{codec}"
+    out = {}
+    if coded:
+        rel, norm = grads_against_plain(cfg, params, data.batch(0))
+        out["grads_vs_plain"] = {"max_leaf_rel_diff": rel, "grad_norm": norm}
+        print(f"train {label}: kernels against plain versions, largest "
+              f"difference {rel:.3g} of its leaf's largest entry (global "
+              f"norm {norm:.4g})", flush=True)
+        if not rel <= 1e-5:
+            raise AssertionError(f"train {label}: kernel gradients part from "
+                                 f"the plain versions' by {rel:.3g} of a "
+                                 "leaf's largest entry")
+    init = {(b, k): params["units"]["pos0"][b][k].clone()
+            for b in BOUNDARIES for k in ("theta", "log_scale")}
+    opt = adamw.init_opt_state(params)
+    step = TT.make_train_step(cfg, microbatches=TRAIN_MICRO,
+                              opt_cfg=adamw.AdamWConfig(**TRAIN_OPT),
+                              device=TRAIN_DEVICE)
+    rates = []
+    real = spike.sparsity_loss
+
+    def recorded(counts, T, *a):
+        rates.append(spike.firing_rate(counts.detach(), T))
+        return real(counts, T, *a)
+
+    hist, times = [], []
+    want = train_launches(codec, cfg.n_layers, TRAIN_MICRO)
+    total = collections.Counter()
+    spike.sparsity_loss = recorded
+    try:
+        for i in range(TRAIN_STEPS):
+            rates.clear()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, data.batch(i))
+            rec = {k: float(v) for k, v in m.items()}
+            times.append(time.perf_counter() - t0)
+            rec["firing_rate"] = (float(torch.stack(rates).mean())
+                                  if rates else 0.0)
+            hist.append(rec)
+            if ops.launch_counts() != want:
+                raise AssertionError(f"train {label} step {i}: launches "
+                                     f"{ops.launch_counts()}, expected {want}")
+            total.update(ops.launch_counts())
+            if not (np.isfinite(rec["loss"]) and np.isfinite(
+                    rec["grad_norm"])):
+                raise AssertionError(f"train {label} step {i}: {rec}")
+            if i == 0 and coded:
+                for u in range(cfg.n_layers):
+                    for (b, k), v0 in init.items():
+                        if torch.equal(params["units"]["pos0"][b][k][u],
+                                       v0[u]):
+                            raise AssertionError(
+                                f"train {label}: layer {u} {b} {k} did not "
+                                "move in the first step")
+            print(f"train {label} step {i}: loss {rec['loss']:.4f} penalty "
+                  f"{rec['penalty']:.6f} occupancy {rec['occupancy']:.4f} "
+                  f"firing rate {rec['firing_rate']:.4f} grad norm "
+                  f"{rec['grad_norm']:.4f} ({times[-1] * 1e3:.0f} ms)",
+                  flush=True)
+    finally:
+        spike.sparsity_loss = real
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    out["profile"] = profile_train_step(step, params, opt,
+                                        data.batch(TRAIN_STEPS))
+    losses = [r["loss"] for r in hist]
+    drop = losses[0] - float(np.mean(losses[-5:]))
+    if drop < TRAIN_MIN_DROP:
+        raise AssertionError(f"train {label}: loss fell by {drop:.3f} nat, "
+                             f"less than {TRAIN_MIN_DROP}")
+    out.update({"steps": TRAIN_STEPS, "loss_drop": drop,
+                "median_step_ms": float(np.median(times[1:])) * 1e3,
+                "first_step_ms": times[0] * 1e3, "peak_gib": peak,
+                "launches_per_step": want, "launches": dict(total),
+                "history": {k: [r[k] for r in hist] for k in hist[0]}})
+    print(f"train {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
+          f"the last 5 {losses[0] - drop:.4f}), median step "
+          f"{out['median_step_ms']:.1f} ms, peak memory {peak:.2f} GiB, "
+          f"launches per step {want}", flush=True)
+    return out
+
+
+def profile_train_step(step, params, opt, batch):
+    """One more train step under ``torch.profiler``: its wall time, its
+    CUDA kernels, their summed device time (one stream: no overlap) and
+    its share of the wall time, and the kernels taking the most device
+    time; None when the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = collections.Counter()
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            n += 1
+    if not n:
+        return None
+    busy = sum(by_name.values()) / 1e3
+    top = [(k[:80], round(v / 1e3, 3)) for k, v in by_name.most_common(8)]
+    print(f"train step profile: wall {wall * 1e3:.1f} ms, {n} device "
+          f"operations, {busy:.1f} ms of device time ({busy / wall / 10:.1f}"
+          f"% busy); most time: {top}", flush=True)
+    return {"wall_ms": wall * 1e3, "device_ops": n, "device_ms": busy,
+            "top_ms": top}
+
+
+def train_cli_resume():
+    """``train_cli.main`` in this process on the reduced config (the
+    checkpoints stay small): 6 steps; 4 steps with a checkpoint every 2;
+    a second launch for 6 that resumes at 4.  The resumed losses must
+    equal the uninterrupted run's within 1e-4 relative (the embedding's
+    backward adds with atomics on the card).  Inside the warmup (8
+    steps) the learning rate does not depend on ``--steps``."""
+    import shutil
+    from repro_torch.launch import train_cli
+    root = ROOT / "build" / "train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, steps):
+        return train_cli.main([
+            "--reduced", "--steps", str(steps), "--batch", "8", "--seq",
+            "64", "--ckpt-every", "2", "--warmup", "8", "--log-every", "2",
+            "--device", TRAIN_DEVICE, "--ckpt-dir", str(root / name)])[1]
+
+    straight = [m["loss"] for m in run("straight", 6)]
+    first = run("resumed", 4)
+    rest = [m["loss"] for m in run("resumed", 6)]
+    shutil.rmtree(root, ignore_errors=True)
+    if len(first) != 4 or len(rest) != 2 or not np.allclose(
+            rest, straight[4:], rtol=1e-4, atol=0):
+        raise AssertionError(f"train_cli resume: {rest} after 4 steps, "
+                             f"uninterrupted {straight}")
+    print(f"train_cli: 4 steps, then a resume at step 4: losses {rest}, "
+          f"uninterrupted {straight[4:]}", flush=True)
+    return {"uninterrupted": straight, "resumed": rest}
+
+
+def train_runs():
+    """The five full-width training runs and the CLI's resume."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(**TRAIN_DATA))
+    runs = {f"{hnn}/{codec}": train_run(hnn, codec, data)
+            for hnn, codec in TRAIN_CODECS}
+    return runs, train_cli_resume()
+
+
+def train_kernel_entries(errs, samples, runs, flush):
+    """The ``kernels`` line's entries of K1 and K2: each timed at every
+    checked shape (``by_shape``), its top-level numbers at the training
+    shape in f32, its launches those of the ``spike`` run's steps."""
+    times = time_train_kernels(samples, flush)
+    out = []
+    for name in TRAIN_KERNELS:
+        by_shape = [{"shape": key.split(" ", 1)[1], "ms": t[0],
+                     "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+                     "library_ms": None}
+                    for key, t in times.items() if key.startswith(name + " ")]
+        for row in by_shape:
+            print(f"{name} {row['shape']}: kernel {row['ms']:.5f} ms, plain "
+                  f"{row['plain_ms']:.5f} ms, bound {row['bound_ms']:.6f} ms "
+                  f"({row['bound_by']})", flush=True)
+        top = by_shape[0]
+        out.append({"name": name, "route": "cuda",
+                    "source": TRAIN_SOURCE[name],
+                    "replaces": TRAIN_REPLACES[name],
+                    "launches": runs["hnn/spike"]["launches"][name],
+                    "max_abs_err": errs[name],
+                    **{k: top[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+                    "shape": top["shape"], "by_shape": by_shape})
+    return out
+
+
 class PhaseClock:
     """Prints each phase's seconds on the host clock as it ends, so a
     run shows where the smoke's time limit goes."""
@@ -2483,6 +2911,18 @@ def main(argv) -> int:
                                         for k, v in gr_spec.items()}},
                       "launch_serve": g_dense}), flush=True)
 
+    # training: the boundaries' backward kernels on the training shapes,
+    # full-width qwen1.5-0.5b under five codecs, the CLI's resume
+    t_errs, t_samples = check_train_kernels()
+    print(f"check roundtrip_bwd, lif_encode_bwd on {list(TRAIN_SHAPES)}: "
+          "dx bit-equal, sums within 1e-5 of their terms' magnitudes, K2 "
+          "each element within 1e-5 of itself + 1e-6 of its output's "
+          f"largest, repeatable (max abs err {t_errs})", flush=True)
+    t_runs, t_cli = train_runs()
+    print(json.dumps({"train": {"runs": t_runs, "cli": t_cli,
+                                "card": card}}), flush=True)
+    clock.mark("training")
+
     # paged decode at every served shape (the served lists of the main
     # path's requests, each config's local layer where it has windows)
     # and on the other configs' conformance cases, f32 pools, the wire
@@ -2539,6 +2979,7 @@ def main(argv) -> int:
 
     flush = torch.empty(96 * 2**20 // 4, dtype=torch.float32, device="cuda")
     kernels.extend(time_boundary_kernels(runs, errs, flush))
+    kernels.extend(train_kernel_entries(t_errs, t_samples, t_runs, flush))
 
     # the count matmul on the bf16 spike run's live wire counts, at the
     # decode and the prefill shape of the MLP input ([M, 1024] x

@@ -24,14 +24,16 @@ def keystr(path) -> str:
 
 
 def tree_paths(tree, prefix=()):
-    """``[(path string, leaf)]`` of a nested dict, keys sorted (the
-    reference's flattening order)."""
-    if not isinstance(tree, Mapping):
-        return [(keystr(prefix), tree)]
-    out = []
-    for k in sorted(tree):
-        out.extend(tree_paths(tree[k], prefix + (k,)))
-    return out
+    """``[(path string, leaf)]`` of nested dicts, tuples and lists, in the
+    reference's flattening order (dict keys sorted, sequences in
+    order)."""
+    if isinstance(tree, Mapping):
+        return [item for k in sorted(tree)
+                for item in tree_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [item for i, v in enumerate(tree)
+                for item in tree_paths(v, prefix + (i,))]
+    return [(keystr(prefix), tree)]
 
 
 def params_from_jax(np_tree, cfg, *, device=None):

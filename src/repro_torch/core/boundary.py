@@ -16,11 +16,24 @@ through the ``pack4``/``unpack4`` kernels, the bias fused into the
 pack, the unbias and the decode into the unpack) and
 ``sparse_topk`` (the top fraction of counts per token as (index, count)
 pairs on the gather; dense counts elsewhere, as in the reference).  A
-world size above 1 raises ``NotImplementedError``.  Gradients use the
-autograd of the local encode/decode (straight-through rounding and the
-surrogate gate from ``core.spike``), which is what the reference's
-custom VJPs compute at one shard; the ``sparse_topk`` gather, whose VJP
-is not ported, raises when a gradient is wanted.
+world size above 1 raises ``NotImplementedError``.
+
+Gradients.  The wire is integer, so autograd cannot see through it:
+``coded_all_gather``, ``coded_psum_scatter`` and ``coded_psum`` are
+each a ``torch.autograd.Function``, as the reference's are
+``jax.custom_vjp``s.  The forward runs the real wire (``_encode_local``
+-> ``_decode_local``, the kernels serving runs); the backward is the
+reference's ``_roundtrip_bwd`` on the primals: the cotangent straight
+through under ``int8`` (the parameters get zeros), and
+``spike.roundtrip_vjp`` under the spike codecs — the hand-derived VJP,
+not the autograd of the forward (under ``spike`` that would chain the
+surrogate through the IF ticks).  With ``bwd_mode="int8"`` the gather
+and the reduce-scatter first code the cotangent as the reference's
+transpose collective does at one rank: int8 absmax per channel over the
+token axes.  The ``sparse_topk`` gather's backward is the VJP of its
+local view (``_topk_local``, the mask detached), recomputed from the
+primals.  ``wire_roundtrip`` has no custom VJP in the reference either:
+it differentiates its local encode/decode.
 
 ``wire_roundtrip`` and ``coded_all_gather`` take the weights that
 consume their decoded output (``consumers``; empty by default).  Under a
@@ -176,21 +189,109 @@ def _topk_local(x, params, codec: BoundaryCodec):
     return spike.decode(c * mask, params, codec.cfg, x.dtype)
 
 
-def _topk_all_gather(x, params, codec: BoundaryCodec):
+class _TopkGather(torch.autograd.Function):
     """Gather over one rank of the top-k (index, count) packets: encode,
     select, scatter the counts back into a dense zero row and decode.
-    Its gradient (the reference's custom VJP) is not ported: with a
-    gradient wanted it raises."""
-    if spike.needs_grad(x, params["theta"], params["log_scale"]):
-        raise NotImplementedError(
-            "gradients through the sparse_topk gather: not ported "
-            "(training is not ported)")
+    Backward (the reference's custom VJP): the VJP of ``_topk_local``
+    at the primals, its mask detached."""
+
+    @staticmethod
+    def forward(ctx, x, theta, log_scale, codec):
+        params = {"theta": theta, "log_scale": log_scale}
+        counts = spike.encode(x, params, codec.cfg)
+        idx, vals = topk_wire(counts, _topk_k(x.shape[-1], codec.capacity))
+        dense = torch.zeros(counts.shape, dtype=torch.float32,
+                            device=x.device)
+        dense.scatter_(-1, idx, vals.to(torch.float32))
+        ctx.save_for_backward(x, theta, log_scale)
+        ctx.codec = codec
+        return spike.decode(dense, params, codec.cfg, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, theta, log_scale = ctx.saved_tensors
+        with torch.enable_grad():
+            prim = [t.detach().requires_grad_() for t in (x, theta,
+                                                          log_scale)]
+            y = _topk_local(prim[0], {"theta": prim[1],
+                                      "log_scale": prim[2]}, ctx.codec)
+            grads = torch.autograd.grad(y, prim, g, allow_unused=True)
+        return tuple(torch.zeros_like(p) if d is None else d
+                     for p, d in zip(prim, grads)) + (None,)
+
+
+def _topk_all_gather(x, params, codec: BoundaryCodec):
+    return _TopkGather.apply(x, params["theta"], params["log_scale"], codec)
+
+
+# ---------------------------------------------------------------------------
+# sparsity statistics (feeds the eq-10 regularizer)
+# ---------------------------------------------------------------------------
+
+
+def boundary_penalty(x, params, codec: BoundaryCodec):
+    """Differentiable sparsity penalty + occupancy of one boundary's
+    counts, in x's dtype; zeros under ``none`` and ``int8``."""
+    if codec.mode in ("none", "int8"):
+        z = torch.zeros((), dtype=x.dtype, device=x.device)
+        return z, z
     counts = spike.encode(x, params, codec.cfg)
-    idx, vals = topk_wire(counts.detach(), _topk_k(x.shape[-1],
-                                                   codec.capacity))
-    dense = torch.zeros(counts.shape, dtype=torch.float32, device=x.device)
-    dense.scatter_(-1, idx, vals.to(torch.float32))
-    return spike.decode(dense, params, codec.cfg, x.dtype)
+    pen = spike.sparsity_loss(counts, codec.cfg.T, codec.cfg.target_rate,
+                              codec.cfg.lam)
+    occ = spike.occupancy(counts)
+    return pen.to(x.dtype), occ.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the coded collectives' backward
+# ---------------------------------------------------------------------------
+
+_INT8 = BoundaryCodec(mode="int8")
+
+
+def _roundtrip_bwd(x, theta, log_scale, g, codec: BoundaryCodec):
+    """Analytic VJP of the local encode -> decode roundtrip (the
+    reference's ``_roundtrip_bwd``): straight through under ``int8``,
+    with no learnable parameters; ``spike.roundtrip_vjp`` otherwise."""
+    if codec.mode == "int8":
+        return (g.to(x.dtype), torch.zeros_like(theta),
+                torch.zeros_like(log_scale))
+    return spike.roundtrip_vjp(x, theta, log_scale, g, codec.cfg)
+
+
+def _code_cotangent(g, codec: BoundaryCodec):
+    """Under ``bwd_mode="int8"``, the cotangent as the transpose
+    collective's int8 wire delivers it at one rank: absmax per channel
+    over the token axes, rounded, decoded in g's dtype."""
+    if codec.bwd_mode != "int8":
+        return g
+    wire, s8, _ = _encode_local(g, None, _INT8)
+    return _decode_local(wire, None, _INT8, s8, g.dtype)
+
+
+class _CodedCollective(torch.autograd.Function):
+    """One coded collective over one rank: ``forward_fn(x, params)`` runs
+    the integer wire; backward is ``_roundtrip_bwd`` at the primals, the
+    cotangent first coded when ``code_g`` (``bwd_mode``)."""
+
+    @staticmethod
+    def forward(ctx, x, theta, log_scale, codec, forward_fn, code_g):
+        ctx.save_for_backward(x, theta, log_scale)
+        ctx.codec, ctx.code_g = codec, code_g
+        return forward_fn(x, {"theta": theta, "log_scale": log_scale})
+
+    @staticmethod
+    def backward(ctx, g):
+        x, theta, log_scale = ctx.saved_tensors
+        if ctx.code_g:
+            g = _code_cotangent(g, ctx.codec)
+        dx, dth, dls = _roundtrip_bwd(x, theta, log_scale, g, ctx.codec)
+        return dx, dth, dls, None, None, None
+
+
+def _coded(x, params, codec, forward_fn, code_g):
+    return _CodedCollective.apply(x, params["theta"], params["log_scale"],
+                                  codec, forward_fn, code_g)
 
 
 # ---------------------------------------------------------------------------
@@ -210,9 +311,12 @@ def coded_all_gather(x, params, codec: BoundaryCodec, axis: int = 0,
         return x
     if codec.mode == "sparse_topk":
         return _topk_all_gather(x, params, codec)
-    wire, s8, counts = _encode_local(x, params, codec)
-    count_matmul_shadow(counts, params, codec, consumers, x.dtype)
-    return _decode_local(wire, params, codec, s8, x.dtype)
+
+    def wire(x, p):
+        w, s8, counts = _encode_local(x, p, codec)
+        count_matmul_shadow(counts, p, codec, consumers, x.dtype)
+        return _decode_local(w, p, codec, s8, x.dtype)
+    return _coded(x, params, codec, wire, code_g=True)
 
 
 def coded_psum_scatter(x, params, codec: BoundaryCodec, axis: int = 0,
@@ -223,10 +327,14 @@ def coded_psum_scatter(x, params, codec: BoundaryCodec, axis: int = 0,
     _check(codec, world_size)
     if codec.mode == "none":
         return x
-    wire, s8, _ = _encode_local(x, params, codec)
-    dec = _decode_local(wire.unsqueeze(0), params, codec,
-                        None if s8 is None else s8.unsqueeze(0), x.dtype)
-    return torch.sum(dec, dim=0)
+
+    def wire(x, p):
+        w, s8, _ = _encode_local(x, p, codec)
+        dec = _decode_local(w.unsqueeze(0), p, codec,
+                            None if s8 is None else s8.unsqueeze(0),
+                            x.dtype)
+        return torch.sum(dec, dim=0)
+    return _coded(x, params, codec, wire, code_g=True)
 
 
 # ---------------------------------------------------------------------------
@@ -266,16 +374,20 @@ def coded_psum(x, params, codec: BoundaryCodec, world_size: int = 1):
     _check(codec, world_size)
     if codec.mode == "none":
         return x
-    if codec.mode == "int8":
-        s = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True),
-                        min=1e-6) / 127.0
-        wire_g = torch.round(x / s).to(torch.int8).unsqueeze(0)
-        s_g = s.unsqueeze(0)
-        dec = wire_g.to(torch.float32) * s_g.to(torch.float32)
-        return torch.sum(dec, dim=0).to(x.dtype)
-    wire, _, _ = _encode_local(x, params, codec)
-    dec = _decode_local(wire.unsqueeze(0), params, codec, None, x.dtype)
-    return torch.sum(dec, dim=0)
+
+    def wire(x, p):
+        if codec.mode == "int8":
+            s = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True),
+                            min=1e-6) / 127.0
+            wire_g = torch.round(x / s).to(torch.int8).unsqueeze(0)
+            s_g = s.unsqueeze(0)
+            dec = wire_g.to(torch.float32) * s_g.to(torch.float32)
+            return torch.sum(dec, dim=0).to(x.dtype)
+        w, _, _ = _encode_local(x, p, codec)
+        dec = _decode_local(w.unsqueeze(0), p, codec, None, x.dtype)
+        return torch.sum(dec, dim=0)
+    # the psum's cotangent is already replicated: no coding of it
+    return _coded(x, params, codec, wire, code_g=False)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,9 @@ run:
 
 * ``spike_step`` — Heaviside with the fast-sigmoid surrogate gradient,
 * ``round_ste`` — round half to even with a straight-through gradient,
+* ``abs_`` and ``clip01`` — ``|x|`` and ``clip(x, 0, 1)`` with JAX's
+  derivatives at their kinks, so the encoders' gradients are the
+  reference's,
 * ``rate_encode_signed`` / ``rate_decode_signed`` — the closed-form
   ("fused") signed rate code: activation -> spike count in {-T..T} and
   back,
@@ -15,6 +18,11 @@ run:
   biased by T and packed, as the reference's
   ``pack4(counts_to_wire_u8(counts, T))``), ``unpack4`` and
   ``wire_u8_to_counts``,
+* the eq-10 sparsity penalty ``sparsity_loss`` and the statistics
+  ``firing_rate`` and ``occupancy``,
+* ``roundtrip_vjp``, the hand-derived backward of a boundary's encode
+  -> decode roundtrip that the coded collectives run (the
+  ``roundtrip_bwd`` kernel on CUDA tensors),
 * ``encode`` / ``decode`` over one boundary's learnable params,
   ``encode_decode``, both in one ``lif_encode`` launch where it can, and
   ``unpack4_decode``, the packed wire's unpack, unbias and decode in one
@@ -32,6 +40,13 @@ own; on CPU tensors each runs its kernel's plain version.  A served wire
 roundtrip (``encode_decode``) takes the decode from the ``lif_encode``
 launch's epilogue, and a served packed exchange (``unpack4_decode``)
 its unbias and decode from the ``unpack4`` launch.
+
+Training: ``encode`` with the faithful encoder and a gradient wanted
+runs PyTorch's autograd through the tick loop on CPU tensors, and on
+CUDA tensors (float32) an autograd Function whose forward is the
+``lif_encode`` kernel and whose backward is its surrogate-gradient
+kernel (``ops.lif_encode_bwd``), on ``x / scale`` and ``theta / scale``
+as the reference divides them.
 """
 from __future__ import annotations
 
@@ -85,6 +100,48 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
     return _RoundSTE.apply(x)
 
 
+class _Abs(torch.autograd.Function):
+    """``|x|`` with JAX's derivative: +1 at 0 (``jnp.abs``'s rule), where
+    PyTorch's is 0.  The penalty differentiates ``|counts|``, and most
+    counts are 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def abs_(x: torch.Tensor) -> torch.Tensor:
+    return _Abs.apply(x) if needs_grad(x) else torch.abs(x)
+
+
+class _Clip01(torch.autograd.Function):
+    """``clip(x, 0, 1)`` with JAX's derivative: 1 inside, 1/2 at either
+    end (``jnp.clip``'s max/min ties), 0 outside; PyTorch's clamp passes
+    1 at the ends."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        inside = ((x > 0) & (x < 1)).to(g.dtype)
+        ends = ((x == 0) | (x == 1)).to(g.dtype)
+        return g * (inside + 0.5 * ends)
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    return _Clip01.apply(x) if needs_grad(x) else torch.clamp(x, 0.0, 1.0)
+
+
 # ---------------------------------------------------------------------------
 # Signed deterministic rate code (eqs 2, 3)
 # ---------------------------------------------------------------------------
@@ -92,9 +149,9 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
 
 def rate_encode_signed(x, scale, theta, T: int):
     """Signed symmetric rate code: counts in {-T..T} (float)."""
-    mag = torch.abs(x)
+    mag = abs_(x)
     gate = spike_step(mag - theta, 10.0)
-    c = round_ste(torch.clamp(mag / scale, 0.0, 1.0) * T) * gate
+    c = round_ste(clip01(mag / scale) * T) * gate
     return torch.sign(x) * c
 
 
@@ -116,10 +173,57 @@ def lif_rate_encode_signed(x, theta, T: int):
     fed by the positive and the negative part of the pre-normalised
     drive ``x`` (= activation / scale); the count difference is gated
     to 0 below the learnable threshold ``theta`` (normalised too)."""
-    gate = spike_step(torch.abs(x) - theta, 10.0)
-    c_pos = if_rate_encode(torch.clamp(x, 0.0, 1.0), T)
-    c_neg = if_rate_encode(torch.clamp(-x, 0.0, 1.0), T)
+    gate = spike_step(abs_(x) - theta, 10.0)
+    c_pos = if_rate_encode(clip01(x), T)
+    c_neg = if_rate_encode(clip01(-x), T)
     return (c_pos - c_neg) * gate
+
+
+class _LIFEncode(torch.autograd.Function):
+    """``lif_rate_encode_signed(xn, thn, T)`` on the card: the counts of
+    the ``lif_encode`` kernel (scale 1: ``xn`` and ``thn`` come
+    normalised) and, backward, the surrogate gradient of its
+    ``ops.lif_encode_bwd`` kernel; the threshold's per-element gradient
+    is summed over the rows here."""
+
+    @staticmethod
+    def forward(ctx, xn, thn, T):
+        C = xn.shape[-1]
+        ones = torch.ones(C, dtype=torch.float32, device=xn.device)
+        counts = kops.lif_encode(xn.reshape(-1, C), thn, ones, T=T)
+        ctx.save_for_backward(xn, thn)
+        ctx.T = T
+        return counts.reshape(xn.shape).to(xn.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xn, thn = ctx.saved_tensors
+        C = xn.shape[-1]
+        dx, dth = kops.lif_encode_bwd(xn.reshape(-1, C), thn,
+                                      g.reshape(-1, C), T=ctx.T)
+        return dx.reshape(xn.shape), torch.sum(dth, dim=0), None
+
+
+# ---------------------------------------------------------------------------
+# Sparsity regularizer (eq 10)
+# ---------------------------------------------------------------------------
+
+
+def sparsity_loss(counts, T: int, target_rate: float, lam: float):
+    """L_sparse = lam * hinge(mean firing rate - target), the firing rate
+    ``mean(|counts|) / T``: the penalty acts only above the target."""
+    rate = torch.mean(abs_(counts)) / T
+    return lam * torch.clamp(rate - target_rate, min=0.0)
+
+
+def firing_rate(counts, T: int):
+    """Mean firing rate in [0, 1] (fraction of possible spikes emitted)."""
+    return torch.mean(abs_(counts)) / T
+
+
+def occupancy(counts):
+    """Fraction of channels that fired at all (1 - sparsity)."""
+    return torch.mean((torch.abs(counts) > 0).to(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +264,8 @@ class SpikeConfig:
     """Static config for one spike boundary."""
 
     T: int = 15                # ticks; 15 -> signed counts fit 5 bits
+    target_rate: float = 0.10  # paper: 90% sparsity
+    lam: float = 1e-3          # weight of the eq-10 penalty
     faithful: bool = False     # True: T-tick IF encoder; False: closed form
 
 
@@ -179,9 +285,11 @@ def encode(x, params: dict, cfg: SpikeConfig):
     """Activation -> signed float counts in {-T..T}. Differentiable.
 
     ``cfg.faithful`` selects the T-tick IF encoder on ``x/scale`` with
-    the gate ``theta/scale``: through ``lif_rate_encode_signed`` when a
-    gradient is wanted (CPU tensors only; training is not ported to the
-    card), else through the ``lif_encode`` kernel, whose counts are the
+    the gate ``theta/scale``.  With a gradient wanted it runs
+    ``lif_rate_encode_signed`` under PyTorch's autograd on CPU tensors
+    and, on CUDA tensors (float32 only), ``_LIFEncode``: the
+    ``lif_encode`` kernel forward and its surrogate-gradient kernel
+    backward.  Without, the ``lif_encode`` kernel, whose counts are the
     same.  Like the reference it computes in the activation's dtype,
     float32 or bfloat16: on a bf16 activation every op is rounded to
     bf16 (the kernel's bf16 mode)."""
@@ -194,12 +302,14 @@ def encode(x, params: dict, cfg: SpikeConfig):
             f"faithful IF encoder on {x.dtype} activations: not ported "
             "(the kernel computes in float32 or bfloat16)")
     if needs_grad(x, params["theta"], params["log_scale"]):
-        if x.device.type != "cpu":
+        if x.device.type == "cpu":
+            return lif_rate_encode_signed(x / scale, theta / scale, cfg.T)
+        if x.dtype != torch.float32:
             raise NotImplementedError(
-                f"gradients through the faithful IF encoder on {x.device}: "
-                "the lif_encode kernel has no surrogate-gradient backward "
-                "yet; the autograd path runs on CPU tensors only")
-        return lif_rate_encode_signed(x / scale, theta / scale, cfg.T)
+                f"gradients through the faithful IF encoder on {x.dtype} "
+                "activations off the CPU: the backward kernel computes "
+                "in float32 only")
+        return _LIFEncode.apply(x / scale, theta / scale, cfg.T)
     C = x.shape[-1]
     counts = kops.lif_encode(x.reshape(-1, C), theta, scale, T=cfg.T,
                              math_dtype=x.dtype)
@@ -257,3 +367,25 @@ def encode_decode(x, params: dict, cfg: SpikeConfig):
         return counts.reshape(x.shape), dec.reshape(x.shape)
     counts = encode(x, params, cfg)
     return counts, decode(counts, params, cfg, x.dtype)
+
+
+def roundtrip_vjp(x, theta, log_scale, g, cfg: SpikeConfig):
+    """Hand-derived VJP of ``y = decode(encode(x))`` for the signed rate
+    code (the reference's ``spike.roundtrip_vjp``): straight-through
+    rounding, the fast-sigmoid surrogate through the gate,
+
+      dy/dx  = gate * 1[0<|x|<s]  +  (c_mag*s/T) * surr(|x|-theta)
+      dy/dth = -sign(x) * c_mag * (s/T) * surr(|x|-theta)
+      dy/dls = sign(x)*gate * ( -|x| * 1[in] + c_mag*s/T )
+
+    with ``s = exp(log_scale)``, computed here in float32, and the
+    parameters' gradients summed over the token dims.  One launch of the
+    ``roundtrip_bwd`` kernel on CUDA tensors (``ops.roundtrip_bwd``).
+    Returns ``(dx in x's dtype, dtheta, dlog_scale)``."""
+    s = torch.exp(log_scale.to(torch.float32))
+    C = x.shape[-1]
+    dx, dth, dls = kops.roundtrip_bwd(
+        x.reshape(-1, C), g.to(x.dtype).reshape(-1, C), theta, s,
+        s / cfg.T, T=cfg.T)
+    return (dx.reshape(x.shape), dth.to(theta.dtype),
+            dls.to(log_scale.dtype))

@@ -5,7 +5,9 @@
 // Replaces the TPU kernel `lif_encode_pallas` / `_lif_encode_kernel`
 // (src/repro/kernels/lif_encode.py). Plain version and wrapper:
 // src/repro_torch/kernels/lif_encode.py. Bound with ctypes through the
-// plain C function `lif_encode_launch` at the bottom of this file.
+// plain C function `lif_encode_launch` at the bottom of this file. A
+// second entry, `lif_encode_bwd_launch`, runs the encoder's surrogate
+// gradient for training (see "Backward" below).
 //
 // What it computes, for x [M, C] and channel c, in f32 as the TPU
 // kernel computes: xn = x / scale[c]; the on and off populations
@@ -242,6 +244,97 @@ void launch(const void* xp, const float* theta, const float* scale,
 #undef LIF_LAUNCH
 }
 
+// ---------------------------------------------------------------------------
+// Backward (surrogate gradient), f32: the VJP of the reference's
+// `lif_rate_encode_signed(xn, thn, T)` (src/repro/core/spike.py) with
+// respect to its pre-normalised input xn [M, C] and its threshold thn
+// [C], element by element, as PyTorch's autograd computes it through the
+// plain tick loop (`if_count` with the fast-sigmoid `spike_step`,
+// src/repro_torch/core/spike.py):
+//   out = (n_on - n_off) * H(|xn| - thn)
+//   n_on = IF(clip(xn, 0, 1)), n_off = IF(clip(-xn, 0, 1))
+//   IF(d): u = 0.5; T times { u = u + d; s = H(u - 1); u = u - s; n += s }
+// Each H takes the surrogate derivative surr(v) = (1 / (1 + 10|v|)^2) * 10
+// (PyTorch's `10 / t`: a reciprocal, then a product). The kernel
+// recomputes both populations' T ticks in registers (T <= kMaxTicks),
+// keeping each tick's v = u - 1, and walks them back:
+//   gs = gn - gu; gu = gu + gs * surr(v_t); gd += gu   (t = T-1 .. 0)
+// The clip passes the gradient inside (0, 1) and half of it at either
+// end, and |xn| passes +1 at 0: JAX's derivatives, which the plain
+// version's `clip01` and `abs_` take. dthn is written per element
+// ([M, C]); the sum over rows and the division by the scale stay in
+// PyTorch's autograd around the launch. One thread an element.
+
+constexpr int kMaxTicks = 16;
+constexpr int kBwdThreads = 256;
+
+__device__ __forceinline__ float surrogate(float v) {
+  const float q = __fadd_rn(1.0f, __fmul_rn(10.0f, fabsf(v)));
+  return __fmul_rn(__frcp_rn(__fmul_rn(q, q)), 10.0f);
+}
+
+// The derivative of clip(v, 0, 1): 1 inside, 1/2 at either end, else 0.
+__device__ __forceinline__ float clip_weight(float v) {
+  return (v > 0.0f && v < 1.0f) ? 1.0f
+                                : ((v == 0.0f || v == 1.0f) ? 0.5f : 0.0f);
+}
+
+// The gradient of the count of one population with respect to its
+// drive d, for the count's cotangent gn.
+__device__ __forceinline__ float if_count_vjp(float d, int T, float gn,
+                                              float* n_out) {
+  float v[kMaxTicks];
+  float u = 0.5f, n = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kMaxTicks; ++t) {
+    if (t < T) {
+      const float w = __fadd_rn(u, d);
+      v[t] = __fsub_rn(w, 1.0f);
+      const float s = v[t] >= 0.0f ? 1.0f : 0.0f;
+      u = __fsub_rn(w, s);
+      n = __fadd_rn(n, s);
+    }
+  }
+  *n_out = n;
+  float gu = 0.0f, gd = 0.0f;
+#pragma unroll
+  for (int t = kMaxTicks - 1; t >= 0; --t) {
+    if (t < T) {
+      const float gs = __fsub_rn(gn, gu);
+      gu = __fadd_rn(gu, __fmul_rn(gs, surrogate(v[t])));
+      gd = __fadd_rn(gd, gu);
+    }
+  }
+  return gd;
+}
+
+__global__ void __launch_bounds__(kBwdThreads) lif_encode_bwd_kernel(
+    const float* __restrict__ xn, const float* __restrict__ thn,
+    const float* __restrict__ g, float* __restrict__ dxn,
+    float* __restrict__ dthn, long n_elem, int C, int T) {
+  const long i = (long)blockIdx.x * kBwdThreads + threadIdx.x;
+  if (i >= n_elem) return;
+  const float x = xn[i];
+  const float th = thn[i % C];
+  const float gi = g[i];
+  const float va = __fsub_rn(fabsf(x), th);
+  const float gate = va >= 0.0f ? 1.0f : 0.0f;
+  const float dp = x > 0.0f ? (x < 1.0f ? x : 1.0f) : 0.0f;
+  const float nx = -x;
+  const float dn = nx > 0.0f ? (nx < 1.0f ? nx : 1.0f) : 0.0f;
+  const float g_diff = __fmul_rn(gi, gate);
+  float n_on, n_off;
+  const float gd_on = if_count_vjp(dp, T, g_diff, &n_on);
+  const float gd_off = if_count_vjp(dn, T, -g_diff, &n_off);
+  const float g_gate = __fmul_rn(gi, __fsub_rn(n_on, n_off));
+  const float g_va = __fmul_rn(g_gate, surrogate(va));
+  float dx = x >= 0.0f ? g_va : -g_va;
+  dx = __fadd_rn(dx, __fmul_rn(gd_on, clip_weight(x)));
+  dx = __fsub_rn(dx, __fmul_rn(gd_off, clip_weight(nx)));
+  dxn[i] = dx;
+  dthn[i] = -g_va;
+}
+
 }  // namespace
 
 // x [M, C] f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); theta, scale [C] f32;
@@ -260,5 +353,18 @@ extern "C" int lif_encode_launch(const void* x, const float* theta,
   else
     launch<float>(x, theta, scale, dscale, out, dec, M, C, T, math_bf16,
                   stream);
+  return (int)cudaGetLastError();
+}
+
+// xn, g, dxn, dthn [M, C] f32; thn [C] f32; 1 <= T <= 16. Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int lif_encode_bwd_launch(const float* xn, const float* thn,
+                                     const float* g, float* dxn, float* dthn,
+                                     long M, int C, int T,
+                                     cudaStream_t stream) {
+  const long n = M * (long)C;
+  const unsigned blocks = (unsigned)((n + kBwdThreads - 1) / kBwdThreads);
+  lif_encode_bwd_kernel<<<blocks, kBwdThreads, 0, stream>>>(
+      xn, thn, g, dxn, dthn, n, C, T);
   return (int)cudaGetLastError();
 }

@@ -22,9 +22,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 #: library name -> source file under csrc/ (``pack4.cu`` holds both the
-#: pack and the unpack kernel)
+#: pack and the unpack kernel, ``lif_encode.cu`` the encoder and its
+#: backward)
 SOURCES = {"paged_decode": "paged_decode.cu", "lif_encode": "lif_encode.cu",
-           "count_matmul": "count_matmul.cu", "pack4": "pack4.cu"}
+           "count_matmul": "count_matmul.cu", "pack4": "pack4.cu",
+           "roundtrip_bwd": "roundtrip_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

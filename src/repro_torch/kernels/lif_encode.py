@@ -42,6 +42,15 @@ rows and, at prefill rows, the read of x and the tick arithmetic.
 
 ``ops.lif_encode`` is the wrapper callers use: CPU tensors take
 ``lif_encode_plain``, CUDA tensors ``lif_encode_cuda``.
+
+The backward (training): ``ops.lif_encode_bwd`` gives the surrogate
+gradient of the faithful encoder with respect to its pre-normalised
+input ``xn = x / scale`` and threshold ``thn = theta / scale``, element
+by element — ``lif_encode_bwd_plain``, PyTorch's autograd through the
+tick loop ``if_count`` with the fast-sigmoid spike, on CPU tensors, and
+``lif_encode_bwd_cuda`` (the second entry of ``csrc/lif_encode.cu``,
+float32, T <= 16) on CUDA tensors.  The sum over rows and the division
+by the scale stay in PyTorch around it.
 """
 from __future__ import annotations
 
@@ -149,3 +158,64 @@ def lif_encode_cuda(x, theta, scale, *, T: int = 15, math_dtype=F32,
         raise RuntimeError(f"lif_encode kernel launch failed: CUDA error "
                            f"{err}")
     return out if dec is None else (out, dec)
+
+
+#: the most ticks the backward kernel keeps in registers
+BWD_MAX_T = 16
+
+
+def lif_encode_bwd_plain(xn, thn, g, *, T: int = 15):
+    """The VJP of ``spike.lif_rate_encode_signed(xn, thn, T)`` for the
+    cotangent ``g``: xn, g [M, C], thn [C] -> (dxn [M, C], dthn [M, C],
+    the threshold's gradient per element), by PyTorch's autograd through
+    the surrogate-gradient tick loop, in xn's dtype."""
+    from ..core import spike          # the surrogate spike lives there
+    M, C = xn.shape
+    with torch.enable_grad():
+        x = xn.detach().requires_grad_()
+        th = thn.detach().expand(M, C).clone().requires_grad_()
+        out = spike.lif_rate_encode_signed(x, th, T)
+        dx, dth = torch.autograd.grad(out, (x, th), g)
+    return dx, dth
+
+
+def _bwd_library():
+    fn = build.load("lif_encode").lif_encode_bwd_launch
+    if fn.argtypes is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        fn.argtypes = [P, P, P, P, P, L, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def lif_encode_bwd_cuda(xn, thn, g, *, T: int = 15):
+    """Launch the backward kernel on the current stream; same contract as
+    ``lif_encode_bwd_plain``.  ``xn`` and ``g`` float32 non-empty
+    [M, C], ``thn`` float32 [C], contiguous on one CUDA device,
+    1 <= T <= ``BWD_MAX_T``.  Raises on anything else and when the
+    launch is refused."""
+    dev = xn.device
+    _require(dev.type == "cuda", f"xn lies on {dev}, not a CUDA device")
+    _require(thn.device == dev and g.device == dev,
+             "tensors lie on different devices")
+    _require(all(t.dtype == F32 for t in (xn, thn, g)),
+             f"the backward computes in float32, got "
+             f"{[t.dtype for t in (xn, thn, g)]}")
+    _require(xn.ndim == 2 and xn.numel() > 0 and g.shape == xn.shape,
+             f"xn and g must be one non-empty [M, C], got "
+             f"{tuple(xn.shape)} and {tuple(g.shape)}")
+    M, C = xn.shape
+    _require(tuple(thn.shape) == (C,), f"thn must be [{C}]")
+    _require(all(t.is_contiguous() for t in (xn, thn, g)),
+             "every input must be contiguous")
+    _require(1 <= T <= BWD_MAX_T, f"T={T}: the backward keeps at most "
+             f"{BWD_MAX_T} ticks")
+    dx = torch.empty_like(xn)
+    dth = torch.empty_like(xn)
+    err = _bwd_library()(xn.data_ptr(), thn.data_ptr(), g.data_ptr(),
+                         dx.data_ptr(), dth.data_ptr(), M, C, int(T),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lif_encode backward launch failed: CUDA "
+                           f"error {err}")
+    return dx, dth

@@ -15,6 +15,7 @@ from . import count_matmul as CM
 from . import lif_encode as LE
 from . import pack4 as PK
 from . import paged_decode as PD
+from . import roundtrip_bwd as RB
 
 
 def _on_cuda(name, t) -> bool:
@@ -132,9 +133,37 @@ def unpack4_decode(packed, T: int, decode_scale):
     return out
 
 
+def roundtrip_bwd(x, g, theta, s, s_over_T, *, T: int):
+    """The backward of a spike-coded boundary's roundtrip: x, g [M, C]
+    (float32 or bfloat16), theta, s = exp(log_scale) and s / T [C]
+    (taken as float32) -> (dx [M, C] in x's dtype, dtheta [C],
+    dlog_scale [C], float32)."""
+    theta, s, s_over_T = theta.float(), s.float(), s_over_T.float()
+    if not _on_cuda("roundtrip_bwd", x):
+        return RB.roundtrip_bwd_plain(x, g, theta, s, s_over_T, T=T)
+    out = RB.roundtrip_bwd_cuda(x.contiguous(), g.contiguous(),
+                                theta.contiguous(), s.contiguous(),
+                                s_over_T.contiguous(), T=T)
+    roundtrip_bwd.launches += 1
+    return out
+
+
+def lif_encode_bwd(xn, thn, g, *, T: int = 15):
+    """The faithful encoder's surrogate gradient: xn = x / scale and the
+    cotangent g [M, C], thn = theta / scale [C] -> (dxn, dthn), both
+    [M, C] (dthn per element, not summed over rows)."""
+    if not _on_cuda("lif_encode_bwd", xn):
+        return LE.lif_encode_bwd_plain(xn, thn, g, T=T)
+    out = LE.lif_encode_bwd_cuda(xn.contiguous(), thn.contiguous(),
+                                 g.contiguous(), T=T)
+    lif_encode_bwd.launches += 1
+    return out
+
+
 _WRAPPERS = {"paged_decode": paged_flash_decode, "lif_encode": lif_encode,
              "count_matmul": count_matmul, "pack4": pack4,
-             "unpack4": unpack4}
+             "unpack4": unpack4, "roundtrip_bwd": roundtrip_bwd,
+             "lif_encode_bwd": lif_encode_bwd}
 
 
 def launch_counts() -> dict:

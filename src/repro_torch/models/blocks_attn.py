@@ -124,18 +124,33 @@ def _maybe_snn(h, p_snn, ctx: Context):
     return boundary._local_roundtrip(h, p_snn, ctx.codec)
 
 
+def _stats(h, p, ctx: Context):
+    """The eq-10 penalty and occupancy (float32 scalars) of a block's
+    gathered input in train mode (zeros without ``collect_stats``);
+    ``(None, None)`` in prefill and decode, whose callers drop them, so
+    a served step launches nothing for them."""
+    if ctx.mode != "train":
+        return None, None
+    if ctx.collect_stats:
+        pen, occ = boundary.boundary_penalty(h, p, ctx.codec)
+        return pen.to(F32), occ.to(F32)
+    z = torch.zeros((), dtype=F32, device=h.device)
+    return z, z
+
+
 # ---------------------------------------------------------------------------
-# forward: prefill
+# forward: train / prefill
 # ---------------------------------------------------------------------------
 
 
 def attn_fwd(p, x, ctx: Context, aux, kind="attn"):
-    """x [B, S, D] -> (x', cache {k, v} [B, S, Hkv, dh] in prefill mode,
-    else None)."""
+    """x [B, S, D] -> (x', cache {k, v} [B, S, Hkv, dh] in prefill mode
+    else None, penalty, occupancy)."""
     cfg = ctx.cfg
     d = attn_dims(cfg)
     dh = d["dh"]
     h = common.norm(x, p["ln"], cfg.norm)
+    pen, occ = _stats(h, p["sp_in"], ctx)
     xg = boundary.coded_all_gather(
         h, p["sp_in"], ctx.codec, axis=1,
         consumers=_consumers(ctx, p, "wq", "wk", "wv"))
@@ -162,12 +177,14 @@ def attn_fwd(p, x, ctx: Context, aux, kind="attn"):
     if cfg.post_norm:
         y = common.norm(y, p["post_ln"], cfg.norm)
     cache = {"k": k, "v": v} if ctx.mode == "prefill" else None
-    return x + y, cache
+    return x + y, cache, pen, occ
 
 
 def mlp_fwd(p, x, ctx: Context):
+    """x [B, S, D] -> (x', penalty, occupancy)."""
     cfg = ctx.cfg
     h = common.norm(x, p["ln2"], cfg.norm)
+    pen, occ = _stats(h, p["sp_in2"], ctx)
     if ctx.mode == "decode":
         # tokens replicated: roundtrip in, spike-accumulated psum out
         h = boundary.wire_roundtrip(h, p["sp_in2"], ctx.codec,
@@ -184,7 +201,7 @@ def mlp_fwd(p, x, ctx: Context):
     y = _maybe_snn(y, p.get("sp_snn2"), ctx)
     if cfg.post_norm:
         y = common.norm(y, p["post_ln2"], cfg.norm)
-    return x + y
+    return x + y, pen, occ
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Execution context threaded through every block.
 
 The port runs on one device: tp = dp = cp = 1, so of the reference's
-fields the context keeps the config, the boundary codec, the mode and
-the encoder flag.
+fields the context keeps the config, the boundary codec, the mode, the
+statistics flag and the encoder flag.
 """
 from __future__ import annotations
 
@@ -45,6 +45,9 @@ class Context:
     cfg: ModelConfig
     codec: BoundaryCodec
     mode: str = "train"            # train|prefill|decode
+    #: in train mode, compute each gathered boundary's eq-10 penalty and
+    #: occupancy (``blocks_attn._stats``)
+    collect_stats: bool = True
     is_encoder: bool = False       # non-causal attention
     #: run ``ops.count_matmul`` on the spike counts of every boundary
     #: whose decoded output feeds a projection, once per weight, beside

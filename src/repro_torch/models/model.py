@@ -15,12 +15,16 @@ passes loop over units (the reference scans them).
                     -> logits at every position (speculative decoding)
   forward_logits  : teacher-forced logits at every position of a token
                     batch (the reference's ``make_logits_step``)
+  forward_loss    : the training forward: mean next-token NLL plus the
+                    coded boundaries' eq-10 penalty, every block
+                    rematerialised in the backward (``_ckpt``)
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from . import blocks_attn, common
@@ -104,8 +108,8 @@ def forward_prefill(params, tokens, ctx: Context, last_pos=None):
         caches = {}
         for i, kind in enumerate(cfg.pattern):
             p = unit_p[f"pos{i}"]
-            x, kv = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
-            x = blocks_attn.mlp_fwd(p, x, ctx)
+            x, kv, _, _ = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
+            x, _, _ = blocks_attn.mlp_fwd(p, x, ctx)
             caches[f"pos{i}"] = {"kv": kv}
         per_unit.append(caches)
     caches = {
@@ -132,7 +136,7 @@ def forward_logits(params, tokens, ctx: Context):
     ``launch.serve.make_logits_step`` computes them.  Like the
     reference's ``lm_logits_local`` it applies no ``final_softcap``."""
     cfg = ctx.cfg
-    ctx = ctx.with_(mode="train")
+    ctx = ctx.with_(mode="train", collect_stats=False)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     aux = {"positions": positions}
@@ -141,8 +145,8 @@ def forward_logits(params, tokens, ctx: Context):
         unit_p = unit_slice(params["units"], u)
         for i, kind in enumerate(cfg.pattern):
             p = unit_p[f"pos{i}"]
-            x, _ = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
-            x = blocks_attn.mlp_fwd(p, x, ctx)
+            x, _, _, _ = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
+            x, _, _ = blocks_attn.mlp_fwd(p, x, ctx)
     return lm_logits_local(params, x, ctx)
 
 
@@ -166,7 +170,7 @@ def _forward_steps(params, cache, tokens, qpos, ctx: Context, aux_extra):
             kv_u = {"k": kv["k"][u], "v": kv["v"][u]}
             x, _ = blocks_attn.attn_verify_fwd(unit_p[f"pos{i}"], x, kv_u,
                                                qpos, ctx, aux, kind=kind)
-            x = blocks_attn.mlp_fwd(unit_p[f"pos{i}"], x, ctx)
+            x, _, _ = blocks_attn.mlp_fwd(unit_p[f"pos{i}"], x, ctx)
     h = common.norm(x, params["final_ln"], cfg.norm)
     logits = (h @ _head_w(params, cfg)).to(F32)
     if cfg.final_softcap:
@@ -224,3 +228,98 @@ def forward_verify(params, cache, tokens, pos, ctx: Context, aux_extra=None,
     qpos = pos[:, None] + torch.arange(K1, dtype=pos.dtype,
                                        device=pos.device)[None, :]
     return _forward_steps(params, cache, tokens, qpos, ctx, aux_extra), cache
+
+
+# ---------------------------------------------------------------------------
+# training: the stack with its statistics, the LM loss, forward_loss
+# ---------------------------------------------------------------------------
+
+
+def _ckpt(fn, ctx: Context):
+    """Per-block rematerialisation in train mode (the reference's
+    ``jax.checkpoint``): the backward recomputes one block at a time
+    instead of holding every block's activations."""
+    if ctx.mode != "train" or not torch.is_grad_enabled():
+        return fn
+    return lambda *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False)
+
+
+def _run_stack(params, x, ctx: Context, aux):
+    """Every unit in train mode -> (x, penalty sum, occupancy mean): the
+    occupancy averages a unit's blocks, then the units, in the
+    reference's order of sums."""
+    cfg = ctx.cfg
+    pen = torch.zeros((), dtype=F32, device=x.device)
+    occ = torch.zeros((), dtype=F32, device=x.device)
+    for u in range(cfg.n_units):
+        unit_p = unit_slice(params["units"], u)
+        pe_u = torch.zeros((), dtype=F32, device=x.device)
+        oc_u = torch.zeros((), dtype=F32, device=x.device)
+        n = 0
+        for i, kind in enumerate(cfg.pattern):
+            p = unit_p[f"pos{i}"]
+            x, _, pe, oc = _ckpt(
+                lambda p_, x_, k=kind: blocks_attn.attn_fwd(
+                    p_, x_, ctx, aux, kind=k), ctx)(p, x)
+            pe_u, oc_u, n = pe_u + pe, oc_u + oc, n + 1
+            x, pe, oc = _ckpt(
+                lambda p_, x_: blocks_attn.mlp_fwd(p_, x_, ctx), ctx)(p, x)
+            pe_u, oc_u, n = pe_u + pe, oc_u + oc, n + 1
+        pen = pen + pe_u
+        occ = occ + (oc_u / max(n, 1)) / cfg.n_units
+    return x, pen, occ
+
+
+def _nll(logits, labels, mask=None):
+    """Mean next-token NLL of f32 logits [B, S, V] (over ``mask`` where
+    given)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
+
+
+def lm_loss_chunked(p, x, labels, ctx: Context, mask=None):
+    """Final norm -> head -> cross-entropy at tp = 1 (the reference's
+    tp = 1 branch: no head boundary, no chunking).  Returns (mean NLL,
+    penalty 0)."""
+    cfg = ctx.cfg
+    h = common.norm(x, p["final_ln"], cfg.norm)
+    logits = (h @ _head_w(p, cfg)).to(F32)
+    if cfg.final_softcap:
+        logits = common.softcap(logits, cfg.final_softcap)
+    return _nll(logits, labels, mask), torch.zeros((), dtype=F32,
+                                                   device=x.device)
+
+
+def xent_loss(logits, labels, ctx: Context, mask=None):
+    """Cross-entropy of logits [B, S, V] at tp = 1 -> mean NLL over the
+    tokens (``final_softcap`` applied first)."""
+    if ctx.cfg.final_softcap:
+        logits = common.softcap(logits, ctx.cfg.final_softcap)
+    return _nll(logits, labels, mask)
+
+
+def forward_loss(params, batch, ctx: Context):
+    """Training forward.  batch: ``tokens`` / ``labels`` [B, S] int
+    tensors (+ optional ``mask``).  Returns (loss, metrics): the loss is
+    the mean NLL plus every boundary's eq-10 penalty; metrics are the
+    NLL (``loss``), the ``penalty`` and the mean ``occupancy``."""
+    cfg = ctx.cfg
+    if cfg.is_encdec:
+        raise NotImplementedError("encoder-decoder training: not ported")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    aux = {"positions": torch.arange(S, device=tokens.device)[None]
+           .expand(B, S)}
+    x = embed_tokens(params, tokens)
+    x, pen, occ = _run_stack(params, x, ctx, aux)
+    loss_ce, pen_h = lm_loss_chunked(params, x, batch["labels"], ctx,
+                                     mask=batch.get("mask"))
+    pen_total = torch.zeros((), dtype=F32, device=x.device) + pen + pen_h
+    loss = loss_ce + pen_total
+    return loss, {"loss": loss_ce, "penalty": pen_total, "occupancy": occ}

@@ -49,4 +49,4 @@ def test_library_name_follows_the_shared_header(name, tmp_path):
         f.write("// edited\n")
     assert (build.source_digest(copy) != before) == includes
     assert includes == (name in ("count_matmul", "lif_encode", "pack4",
-                                 "paged_decode"))
+                                 "paged_decode", "roundtrip_bwd"))

@@ -895,3 +895,169 @@ def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# training: the boundaries' backward kernels (K1 roundtrip_bwd, K2 the
+# faithful encoder's surrogate gradient) and a train step on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_SHAPES = [(1024, 1024), (2048, 1024), (37, 1024), (5, 33), (1, 1)]
+
+
+def _close_per_element(a, w):
+    """|a - w| <= 1e-5 |w| + 1e-6 max |w|, element by element: the
+    surrogate chain makes a few entries ~1e6 times the typical one, so
+    a bound on the largest entry alone would pass a wrong typical one."""
+    return bool(((a - w).abs() <= 1e-5 * w.abs()
+                 + 1e-6 * w.abs().max()).all())
+
+
+def _backward_inputs(M, C, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(M, C, generator=gen, device="cuda") * 0.8).to(dtype)
+    g = torch.randn(M, C, generator=gen, device="cuda").to(dtype)
+    theta = 0.3 * torch.rand(C, generator=gen, device="cuda")
+    s = torch.exp(2 * torch.rand(C, generator=gen, device="cuda") - 1)
+    return x, g, theta, s
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,C", TRAIN_SHAPES)
+def test_roundtrip_bwd_matches_plain_on_card(M, C, dtype):
+    """K1: dx equal to the plain version's bits, dtheta and dlog_scale
+    within 1e-5 of the sum of their terms' magnitudes per channel, and
+    the same bits on a second launch."""
+    _require_cuda()
+    from repro_torch.kernels import roundtrip_bwd as RB
+    x, g, theta, s = _backward_inputs(M, C, getattr(torch, dtype), M + C)
+    args = (x, g, theta, s, s / 15)
+    got = RB.roundtrip_bwd_cuda(*args, T=15)
+    again = RB.roundtrip_bwd_cuda(*args, T=15)
+    dx, dth, dls = RB.roundtrip_bwd_terms(*args, T=15)
+    assert got[0].dtype == x.dtype and torch.equal(got[0], dx)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for out, terms in ((got[1], dth), (got[2], dls)):
+        assert ((out - terms.sum(0)).abs()
+                <= 1e-5 * terms.abs().sum(0)).all()
+
+
+@pytest.mark.parametrize("M,C", TRAIN_SHAPES)
+def test_lif_encode_bwd_matches_plain_on_card(M, C):
+    """K2: each output element within 1e-5 of the plain version's
+    (autograd through the surrogate tick loop) plus 1e-6 of that
+    output's largest entry, the same bits on a second launch."""
+    _require_cuda()
+    from repro_torch.kernels import lif_encode as LE
+    x, g, theta, s = _backward_inputs(M, C, torch.float32, 7 * M + C)
+    args = (x / s, theta / s, g)
+    got = LE.lif_encode_bwd_cuda(*args, T=15)
+    again = LE.lif_encode_bwd_cuda(*args, T=15)
+    want = LE.lif_encode_bwd_plain(*args, T=15)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert _close_per_element(a, w)
+
+
+def test_backward_kernels_refuse_bad_inputs():
+    _require_cuda()
+    from repro_torch.kernels import lif_encode as LE
+    from repro_torch.kernels import roundtrip_bwd as RB
+    x, g, theta, s = _backward_inputs(4, 8, torch.float32, 0)
+    with pytest.raises(ValueError):
+        LE.lif_encode_bwd_cuda(x.bfloat16(), theta, g.bfloat16(), T=15)
+    with pytest.raises(ValueError):
+        LE.lif_encode_bwd_cuda(x, theta, g, T=LE.BWD_MAX_T + 1)
+    with pytest.raises(ValueError):
+        LE.lif_encode_bwd_cuda(x.cpu(), theta.cpu(), g.cpu(), T=15)
+    with pytest.raises(ValueError):
+        RB.roundtrip_bwd_cuda(x, g.bfloat16(), theta, s, s / 15, T=15)
+    with pytest.raises(ValueError):
+        RB.roundtrip_bwd_cuda(x, g, theta[:4], s, s / 15, T=15)
+
+
+def test_faithful_encode_gradient_on_card():
+    """A faithful encode that wants a gradient runs the ``lif_encode``
+    kernel forward and K2 backward (one launch each), with the counts
+    and gradients (each element within 1e-5 of itself plus 1e-6 of its
+    gradient's largest entry) of PyTorch's autograd through the plain
+    tick loop on the same card; bf16 with a gradient is refused.  (Against the CPU the surrogate chain, up to 15
+    factors near -9, magnifies last-place differences past that bound.)"""
+    _require_cuda()
+    from repro_torch.core import spike
+    x, g, theta, s = _backward_inputs(64, 96, torch.float32, 3)
+    cfg = spike.SpikeConfig(T=15, faithful=True)
+    outs = []
+    for route in ("kernels", "autograd"):
+        tx = x.detach().requires_grad_()
+        p = {"theta": theta.detach().requires_grad_(),
+             "log_scale": torch.log(s).detach().requires_grad_()}
+        ops.reset_launch_counts()
+        if route == "kernels":
+            y = spike.encode(tx, p, cfg)
+        else:
+            sc = torch.exp(p["log_scale"])
+            y = spike.lif_rate_encode_signed(tx / sc, p["theta"] / sc, 15)
+        (y * g).sum().backward()
+        n = ops.launch_counts()
+        assert (n["lif_encode"], n["lif_encode_bwd"]) == (
+            (1, 1) if route == "kernels" else (0, 0))
+        outs.append([t.detach().cpu() for t in
+                     (y, tx.grad, p["theta"].grad, p["log_scale"].grad)])
+    assert torch.equal(outs[0][0], outs[1][0])
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert _close_per_element(a, b)
+    with pytest.raises(NotImplementedError):
+        spike.encode(x.bfloat16().requires_grad_(),
+                     {"theta": theta, "log_scale": torch.log(s)}, cfg)
+
+
+@pytest.mark.parametrize("codec", ["spike_fused", "spike", "spike_pack4"])
+def test_train_step_on_card_matches_cpu(codec, monkeypatch):
+    """One AdamW step of reduced qwen1.5-0.5b (f32, two microbatches) on
+    the card, through K1 (and K2 under ``spike``), against the same step
+    with the plain versions on the card (each leaf within 1e-5 of its
+    largest entry) and on the CPU (metrics within 1e-4, the gradients
+    within 1e-4 of the global gradient norm: between devices the
+    surrogate chain magnifies last-place differences), and the kernels
+    launched as the path predicts."""
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as TT
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = reduced(get_config("qwen1.5-0.5b", codec=codec)).replace(
+        dtype=torch.float32)
+    params = TT.init_train_params(cfg, 0, device="cuda")
+    cpu = _to_cpu(params)
+    batch = SyntheticLM(DataConfig(seq_len=32, global_batch=4)).batch(0)
+    res = {}
+    for dev, p in (("cuda", params), ("cpu", cpu)):
+        ops.reset_launch_counts()
+        step = TT.make_train_step(cfg, microbatches=2, device=dev,
+                                  with_optimizer=False)
+        res[dev] = step(p, batch)
+        if dev == "cuda":
+            n = ops.launch_counts()
+            L = cfg.n_layers
+            assert n["roundtrip_bwd"] == 4 * L * 2
+            assert n["lif_encode_bwd"] == (2 * L * 2 if codec == "spike"
+                                           else 0)
+    from repro_torch.kernels import lif_encode as LE
+    from repro_torch.kernels import roundtrip_bwd as RB
+    for mod, name in ((RB, "roundtrip_bwd"), (LE, "lif_encode_bwd"),
+                      (LE, "lif_encode"), (PK, "pack4_counts"),
+                      (PK, "unpack4_decode")):
+        monkeypatch.setattr(mod, name + "_cuda", getattr(mod, name + "_plain"))
+    gp_card = TT.make_train_step(cfg, microbatches=2, device="cuda",
+                                 with_optimizer=False)(params, batch)[1]
+    for a, b in zip(tree_leaves(res["cuda"][1]), tree_leaves(gp_card)):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    (lc, gc, mc), (lp, gp, mp) = res["cuda"], res["cpu"]
+    for k in mc:
+        assert abs(float(mc[k]) - float(mp[k])) <= 1e-4, k
+    norm = float(TT.global_grad_norm(gp))
+    for a, b in zip(tree_leaves(gc), tree_leaves(gp)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * norm

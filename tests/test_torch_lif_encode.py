@@ -176,11 +176,13 @@ def test_faithful_autograd_path_matches_jax():
                                    atol=2e-5 * np.abs(want).max())
 
 
-def test_faithful_codec_refuses_bf16_and_other_devices():
+def test_faithful_codec_refuses_bf16_and_other_devices(monkeypatch):
     """bf16 activations are served now (the kernel's bf16 mode): the
     codec's counts equal the JAX codec's on 256 x 1024 values at T = 15
-    and 7, where computing in float32 would differ.  Other devices and
-    gradients off the CPU are still refused."""
+    and 7, where computing in float32 would differ.  float16 and other
+    devices are still refused.  A gradient off the CPU goes to the
+    kernels' autograd Function (``spike._LIFEncode``), never to the CPU
+    autograd path; on a device with no kernel its launch refuses it."""
     rng = np.random.RandomState(21)
     x = (rng.standard_normal((256, 1024)) * 1.5).astype(np.float32)
     pn = _codec_params(1024, 22)
@@ -204,12 +206,18 @@ def test_faithful_codec_refuses_bf16_and_other_devices():
     with pytest.raises(ValueError):
         ops.lif_encode(meta, torch.zeros(4, device="meta"),
                        torch.ones(4, device="meta"))
-    # off the CPU the autograd path is refused, never run in place of
-    # the kernel
+    # off the CPU a gradient routes to the kernels' Function, never to
+    # the CPU autograd path; the meta device has no kernel
     pm = {k: v.to("meta") for k, v in p.items()}
-    with pytest.raises(NotImplementedError):
+    routed = []
+    real = TS._LIFEncode.apply
+    monkeypatch.setattr(TS._LIFEncode, "apply",
+                        lambda *a: routed.append(a) or real(*a))
+    monkeypatch.setattr(TS, "lif_rate_encode_signed", None)
+    with pytest.raises(ValueError):
         TS.encode(meta.clone().requires_grad_(), pm,
                   TS.SpikeConfig(faithful=True))
+    assert len(routed) == 1 and routed[0][0].device.type == "meta"
 
 
 def _same_exp(log_scale, dtype):
