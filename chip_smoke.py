@@ -121,14 +121,39 @@ on failure:
    52 layers (its full depth, 105 GiB in float32, does not fit one card)
    serves them under ``none`` and ``spike_fused``, each at ``spec_k`` 0
    and 3, every live paged-decode launch held to its plain version;
-10. training: the boundaries' backward kernels — K1 ``roundtrip_bwd``
+10. the MoE family, every earlier model freed first: full-width
+   ``qwen2-moe-a2.7b`` (24 layers, d_model 2048, 16 MHA heads of 128,
+   60 experts top-4 and 4 shared of 1408, 14.32 B parameters, 53.4 GiB
+   in float32, seeded) serves the main path's requests under ``none``,
+   ``spike_fused`` and ``spike`` as in phase 4 (``lif_encode`` at a MoE
+   layer's two attention boundaries: its MoE block has no coded
+   exchange at world size 1; ``spike_pack4`` cut for time), every router
+   traced (``WireTrace``: its probabilities and choices, and each row's
+   kept assignments beside every row's choices), so the walks agree up
+   to a rounding split, a routing split (a router's k-th and (k+1)-th
+   probabilities within float noise of each other) or a capacity split
+   (another row of the step, a dead slot's among them, chose other
+   experts); the ``spike_fused`` run is served again for the same
+   streams and margins; the cyclic prompts at ``spec_k`` 3 beside 0
+   under ``spike_fused`` (agreement and both runs' dropped assignments
+   printed, not gated: capacity depends on the step's rows); the CUDA
+   kernels of one decode step.  ``llama4-maverick-400b-a17b`` at full
+   width, 2 of its 48 layers (a dense and a MoE block of 128 experts,
+   bfloat16): ``none`` and ``spike_fused`` (its spec runs cut for
+   time).
+   Then ``qwen2-moe-a2.7b`` at 2 layers trains 20 AdamW steps under
+   ``spike_fused`` and ``spike`` as in phase 11 (each MoE layer's
+   ``sp_disp`` moved by the first step, its ``sp_comb`` gradient
+   exactly 0); dropped assignments per step printed throughout;
+11. training: the boundaries' backward kernels — K1 ``roundtrip_bwd``
    (f32 and bf16) and K2 ``lif_encode_bwd`` (f32) — against their
    plain versions at [1024, 1024] (the training runs' boundary, one
    microbatch), [2048, 1024] and [37, 1024] (K1's dx bit-equal, its
    sums within 1e-5 of their terms' magnitudes, each K2 output element
    within 1e-5 of itself plus 1e-6 of the output's largest entry, both
-   the same bits twice); then full-width ``qwen1.5-0.5b`` (all 24 layers, f32,
-   seeded init) trains ``TRAIN_STEPS`` = 30 AdamW steps (lr 1e-3,
+   the same bits twice); then full-width ``qwen1.5-0.5b`` at
+   ``TRAIN_LAYERS`` = 8 of its 24 layers (f32, seeded init) trains
+   ``TRAIN_STEPS`` = 30 AdamW steps (lr 1e-3,
    warmup 5, two microbatches of 4 x 256 ``SyntheticLM`` tokens) under
    ``none`` (ANN), ``spike_fused``, ``spike``, ``spike_pack4`` and
    ``spike_fused+bwd8``: every loss and grad norm finite, the loss
@@ -142,7 +167,7 @@ on failure:
    then ``train_cli.main`` in this process (reduced config): a resume
    from its step-4 checkpoint gives the losses of an uninterrupted
    6-step run within 1e-4;
-11. time the launch floor (a one-element ``zero_()``) and each kernel,
+12. time the launch floor (a one-element ``zero_()``) and each kernel,
    its plain version and its bound at the shapes the serve path gives
    it (``lif_encode`` in both compute types at the decode and the
    prefill rows, with and without the epilogue; ``pack4`` from both
@@ -160,9 +185,12 @@ on failure:
    line (paged decode's entry at the main path's decode shape, and
    under ``by_shape`` at every served decode and verify shape of the
    four configs and on the other configs' conformance cases, each with
-   its launches, rows per block, row groups and warps; K1 and K2 at
-   their checked shapes, their launches the ``spike`` training run's);
-12. print ``{"ok": true, "device": {...}}`` as the last line.
+   its launches, rows per block, row groups and warps, the MoE
+   family's decode and verify shapes among them, llama4's over a bf16
+   pool; the boundary kernels also at the MoE widths 2048 and 5120; K1
+   and K2 at their checked shapes, their launches the ``spike``
+   training run's);
+13. print ``{"ok": true, "device": {...}}`` as the last line.
 
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result.  It imports nothing of JAX.
@@ -183,6 +211,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import hashlib
 import json
 import subprocess
@@ -371,17 +400,18 @@ def visible_keys(arrays, window=0):
     return seen.sum(-1), seen.any(1).sum(-1)
 
 
-def time_paged(arrays, window=0, cap=0.0):
+def time_paged(arrays, window=0, cap=0.0, pool_dtype=torch.float32):
     """(kernel ms, plain ms, SDPA ms or None, bound ms, bound_by) of
-    paged decode on a case's arrays (f32 pools) with the wire epilogue
-    on, as the coded decode and verify steps run it.  SDPA, the
+    paged decode on a case's arrays (``pool_dtype`` pools, float32
+    unless given) with the wire epilogue on, as the coded decode and
+    verify steps run it.  SDPA, the
     yardstick, attends over each slot's listed keys gathered densely in
     list order, each query masked to the keys it sees (GQA heads
     shared); no PyTorch call computes a softcapped score, so there is
     none where ``cap`` is set."""
     from repro_torch.kernels import paged_decode as PD
     from repro_torch.kernels.cases import to_tensors
-    q, kp, vp, clp, clo, qpos = to_tensors(arrays, "cuda")
+    q, kp, vp, clp, clo, qpos = to_tensors(arrays, "cuda", pool_dtype)
     kw = dict(window=window, cap=cap, encode_wire=True)
     flush = torch.empty(96 * 2**20 // 4, dtype=torch.float32,
                         device="cuda")
@@ -409,7 +439,7 @@ def time_paged(arrays, window=0, cap=0.0):
         k_d = k_d[:, :, :L].contiguous()
         v_d = v_d[:, :, :L].contiguous()
         mask = mask[:, None, :, :L]                          # [B,1,K1,L]
-        q_d = q.permute(0, 2, 1, 3).contiguous()
+        q_d = q.permute(0, 2, 1, 3).to(kp.dtype).contiguous()
         lib_ms = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q_d, k_d, v_d, attn_mask=mask, enable_gqa=Hq != Hkv),
@@ -492,11 +522,17 @@ class _Patch:
 
     def __enter__(self):
         orig = self.orig = getattr(self.module, self.name)
+        # an instance's method lives on its class: patched, then deleted
+        # again (a bound method kept on the instance would keep it alive)
+        self.own = self.name in vars(self.module)
         setattr(self.module, self.name,
                 lambda *a, **kw: self.fn(orig, *a, **kw))
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.orig)
+        if self.own:
+            setattr(self.module, self.name, self.orig)
+        else:
+            delattr(self.module, self.name)
 
 
 def _boundary_fns():
@@ -554,7 +590,8 @@ def check_boundary_kernels():
     unaligned views), and random inputs at the serve shapes, kernel ==
     plain on the card.  Returns ({kernel: largest abs difference},
     {entry point: launches checked})."""
-    from repro_torch.kernels.cases import (LIF_CASES, LIF_TAIL_CASES,
+    from repro_torch.kernels.cases import (LIF_CASES, LIF_MOE_PREFILL_CASES,
+                                           LIF_TAIL_CASES,
                                            PACK4_CASES, PACK4_TAIL_CASES,
                                            UNPACK4_LOG_SCALES, lif_tensors,
                                            pack4_case, pack4_counts_case,
@@ -576,7 +613,7 @@ def check_boundary_kernels():
             check("lif_encode", x, theta, scale, T=T, math_dtype=md,
                   decode_scale=ds)
 
-    for name in LIF_CASES + LIF_TAIL_CASES:
+    for name in LIF_CASES + LIF_TAIL_CASES + LIF_MOE_PREFILL_CASES:
         x, theta, scale, T = lif_tensors(name, "cuda")
         check_lif(x, theta, scale, T)
         if name in LIF_TAIL_CASES:
@@ -735,6 +772,53 @@ def time_boundary_kernels(runs, errs, flush):
     return out
 
 
+def time_moe_boundaries(moe_runs, flush):
+    """The boundary kernels at the MoE family's widths, 2048 (qwen2-moe:
+    ``lif_encode`` on the live inputs of its ``spike`` checked run,
+    decode and prefill rows, with its launches there) and 5120 (llama4),
+    and the packs at both: where no served run launches a kernel (the
+    ``spike_pack4`` run was cut for time, llama4's codecs launch none)
+    the conformance cases ``moe_m*_c*`` stand in, at 0 launches.
+    Returns {kernel name: rows for its ``by_shape``}."""
+    from repro_torch.kernels.cases import (lif_tensors, pack4_case,
+                                           pack4_counts_case,
+                                           unpack4_log_scale)
+    rows = {name: [] for name in BOUNDARY_KERNELS}
+
+    def add(config, entry, args, kw, launches):
+        k_ms, p_ms, b_ms, b_by = time_boundary(entry, args, kw, flush)
+        kernel = _boundary_fns()[entry][0]
+        row = {"config": config, "shape": list(args[0].shape),
+               "entry": entry, "epilogue": kw.get("decode_scale") is not None,
+               "launches": launches, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        rows[kernel].append(row)
+        print(f"{entry} at {row['shape']} ({config}, epilogue "
+              f"{row['epilogue']}): kernel {k_ms:.5f} ms, plain {p_ms:.5f} "
+              f"ms, bound {b_ms:.6f} ms ({b_by}), launches {launches}",
+              flush=True)
+
+    chk = moe_runs["spike"][1]
+    for key, (args, kw) in sorted(chk.samples.items(), key=str):
+        if key[0] == "lif_encode":
+            add(QWEN2MOE, key[0], args, kw, chk.by_shape[key[:2]])
+    for name in ("moe_m4_c5120", "moe_m256_c5120"):
+        x, theta, scale, T = lif_tensors(name, "cuda")
+        add(LLAMA4, "lif_encode", [x, theta, scale], {"T": T}, 0)
+        add(LLAMA4, "lif_encode", [x, theta, scale],
+            {"T": T, "decode_scale": (scale / T).float()}, 0)
+    for config, C in ((QWEN2MOE, 2048), (LLAMA4, 5120)):
+        counts = torch.tensor(pack4_counts_case(f"moe_m4_c{C}", 7),
+                              device="cuda")
+        add(config, "pack4_counts", [counts, 7], {}, 0)
+        packed = torch.tensor(pack4_case(f"moe_m4_c{C // 2}"),
+                              device="cuda")
+        ds = torch.exp(torch.tensor(unpack4_log_scale("seeded", C),
+                                    device="cuda")) / 7
+        add(config, "unpack4_decode", [packed, 7, ds], {}, 0)
+    return rows
+
+
 def check_count_matmul():
     """The count matmul's conformance sweep on the card: every shape of
     ``COUNT_MATMUL_SHAPES`` and ``COUNT_MATMUL_RAGGED_SHAPES`` at T = 7
@@ -867,6 +951,8 @@ class LaunchCheck:
     def __init__(self):
         self.launches = collections.Counter()
         self.entries = collections.Counter()     # by entry point
+        #: boundary-kernel launches by (entry point, input shape)
+        self.by_shape = collections.Counter()
         self.flipped = 0         # wire values one step from the plain one
         # (entry point, input shape, epilogue) or ("count_matmul",
         # (M, K, N)) -> (args, kw) of the first such live launch
@@ -922,6 +1008,7 @@ class LaunchCheck:
                                      "the plain version")
             self.launches[kernel] += 1
             self.entries[entry] += 1
+            self.by_shape[entry, tuple(args[0].shape)] += 1
             epilogue = kw.get("decode_scale") is not None
             self.epilogues += epilogue
             key = (entry, tuple(args[0].shape), epilogue)
@@ -962,7 +1049,10 @@ class WireTrace:
     """Record every coded value the decode or verify steps of one engine
     run put on a wire: the spike counts of each boundary encode with the
     values they were rounded from, and the int8 attention partial with
-    its scale.  Each row is keyed by the token it produces: (rid, token
+    its scale; and every MoE block's routing decisions: the experts a
+    row chose with the router probabilities they were chosen from
+    ("routing"), and the assignments the capacity rule kept with every
+    row's choices of that step ("capacity").  Each row is keyed by the token it produces: (rid, token
     index, site), where the site counts the step's wire events in order
     (the same order at K1 = 1 and at K1 > 1).  A verify step's row j of
     a slot with n committed tokens produces token n + j if the j drafts
@@ -989,7 +1079,7 @@ class WireTrace:
 
     def patches(self):
         from repro_torch.core import boundary, spike
-        from repro_torch.models import common
+        from repro_torch.models import blocks_moe, common
         from repro_torch.models import model as M
         return [_Patch(M, "forward_decode", self._forward),
                 _Patch(M, "forward_verify", self._forward),
@@ -997,7 +1087,9 @@ class WireTrace:
                 _Patch(spike, "encode", self._encode),
                 _Patch(spike, "encode_decode", self._encode_decode),
                 _Patch(boundary, "coded_combine_partials", self._combine),
-                _Patch(common, "flash_attention", self._attend)]
+                _Patch(common, "flash_attention", self._attend),
+                _Patch(blocks_moe, "_route", self._route),
+                _Patch(blocks_moe, "_dispatch_slots", self._slots)]
 
     def _admit(self, orig, entry):
         req, prior, _, prompt = self.eng._entry_parts(entry)
@@ -1059,6 +1151,28 @@ class WireTrace:
                      wire.detach().clone())
         return orig(wire, scale, lse, *a, **kw)
 
+    def _route(self, orig, cfg, d, h, wr):
+        # a MoE block's router: its probabilities, and the experts chosen
+        gates, idx, probs = orig(cfg, d, h, wr)
+        B, S = h.shape[:2]
+        self._record("routing", probs.detach().view(B, S, -1).clone(),
+                     idx.view(B, S, -1).clone())
+        return gates, idx, probs
+
+    def _slots(self, orig, idx, E, C):
+        # the capacity rule: each row's kept assignments, beside the
+        # experts every row of the step chose (dead slots' among them),
+        # which decide them
+        keep, row = orig(idx, E, C)
+        if self._step is not None:
+            T, k = idx.shape
+            B = 1 if "prefill" in self._step else len(self._step["feed"])
+            every = idx.reshape(1, 1, T * k).clone().expand(B, T // B,
+                                                            T * k)
+            self._record("capacity", every,
+                         keep.view(B, T // B, k).to(torch.int8))
+        return keep, row
+
     def _attend(self, orig, *a, **kw):
         out = orig(*a, **kw)
         if self._step is not None and "prefill" in self._step:
@@ -1076,7 +1190,7 @@ class WireTrace:
         return out
 
 
-def rounding_splits(tr_a, tr_b, a, b, noise=1e-4):
+def rounding_splits(tr_a, tr_b, a, b, noise=1e-4, kinds=None):
     """Per request, the first token whose producing row put a different
     coded value on any wire in the run traced by ``tr_a`` (streams
     ``a``) and the one traced by ``tr_b`` (streams ``b``), among the
@@ -1085,9 +1199,19 @@ def rounding_splits(tr_a, tr_b, a, b, noise=1e-4):
     rounded from agree to float noise (spike counts: within ``noise`` of
     the row's magnitude — 1e-4 in float32, one bf16 ulp of the row's
     largest value, 2**-7 of it, in bfloat16) or one int8 step (attention
-    partial); or if a token both runs produced from one stream has no
-    traced row.  Returns (rid -> token index, wire kind -> [requests
-    split there first, largest relative gap seen at those splits])."""
+    partial); a routing split: a MoE router chose other experts from
+    probabilities that agree to ``ROUTE_NOISE`` times that noise, where
+    its k-th and (k+1)-th probabilities lie within float noise of each
+    other (1e-6 of the k-th, or twice the runs' difference if that is
+    larger); or a
+    capacity split: the row's routing agreed but the capacity rule kept
+    other assignments, because another row of the step (another
+    request's, whose own first difference is checked in its turn, or a
+    dead slot's) chose other experts; or if a token both runs produced
+    from one stream has no traced row.  Returns (rid -> token index,
+    wire kind -> [requests split there first, largest relative gap seen
+    at those splits]); ``kinds``, if given, gets each split request's
+    kind."""
     rows_a, rows_b = tr_a.rows(a), tr_b.rows(b)
     cut, splits = {}, {}
     for rid in sorted(b):
@@ -1102,20 +1226,58 @@ def rounding_splits(tr_a, tr_b, a, b, noise=1e-4):
                     if not torch.equal(ra[k][2], rb[k][2])]
             if not diff:
                 continue
-            kind, pre_a, _ = ra[diff[0]]
+            kind, pre_a, wire_a = ra[diff[0]]
             pre_b = rb[diff[0]][1]
-            gap = float((pre_a - pre_b).abs().max()
-                        / pre_b.abs().max().clamp(min=1e-30))
-            limit = noise if kind == "spike counts" else 1.0 / 127 + 1e-5
-            if gap > limit:
-                raise AssertionError(
-                    f"request {rid} token {t}: {kind} differ with values "
-                    f"{gap:.3g} apart — not a rounding split")
+            if kind == "capacity":
+                if torch.equal(pre_a, pre_b):
+                    raise AssertionError(
+                        f"request {rid} token {t}: the capacity rule kept "
+                        "other assignments of equal routing")
+                gap = 0.0
+            else:
+                gap = float((pre_a - pre_b).abs().max()
+                            / pre_b.abs().max().clamp(min=1e-30))
+                limit = {"attention wire": 1.0 / 127 + 1e-5,
+                         "routing": ROUTE_NOISE * noise}.get(kind, noise)
+                if gap > limit:
+                    raise AssertionError(
+                        f"request {rid} token {t}: {kind} differ with "
+                        f"values {gap:.3g} apart — not a rounding split")
+            if kind == "routing":
+                tie = route_tie(pre_a, pre_b, wire_a.shape[-1])
+                if tie > max(ROUTE_TIE, 2 * gap):
+                    raise AssertionError(
+                        f"request {rid} token {t}: the router chose other "
+                        f"experts at a top-k margin of {tie:.3g} of the "
+                        "k-th probability — not a routing split")
             cut[rid] = t
+            if kinds is not None:
+                kinds[rid] = kind
             n, worst = splits.get(kind, (0, 0.0))
             splits[kind] = [n + 1, max(worst, gap)]
             break
     return cut, splits
+
+
+#: a routing split's largest top-k margin, relative to the k-th
+#: probability: float noise
+ROUTE_TIE = 1e-6
+#: how far, in units of the spike counts' noise, two runs' router
+#: probabilities may lie apart at a routing split: a router carries its
+#: input's rounding through a d_model-long product and the softmax (in
+#: bf16, one ulp of a few of llama4's 5120 inputs moved a probability by
+#: 0.008 of the row's largest, just over one ulp)
+ROUTE_NOISE = 4
+
+
+def route_tie(pa, pb, k):
+    """The smaller of two runs' margins between a row's k-th and
+    (k+1)-th router probabilities, relative to the k-th."""
+    out = []
+    for p in (pa, pb):
+        top = torch.sort(p.double(), descending=True).values
+        out.append(float((top[k - 1] - top[k]) / top[k - 1]))
+    return min(out)
 
 
 def _first_split(rid, pairs, noise):
@@ -1236,6 +1398,37 @@ def resume_splits(tr_a, tr_b, a, b, points, prompt_len, margins_a,
     return out
 
 
+class DropCount:
+    """Counts, on the card and without a host sync, the assignments the
+    MoE blocks' capacity rule dropped in one engine run, by the step's
+    token count: the decode (or verify) steps' T = slots x K1, the
+    prefills' ``prefill_len``."""
+
+    def __init__(self):
+        self.eng = None
+        self.by_T = {}
+
+    def patches(self):
+        from repro_torch.models import blocks_moe
+        return [_Patch(blocks_moe, "_dispatch_slots", self._slots)]
+
+    def _slots(self, orig, idx, E, C):
+        keep, row = orig(idx, E, C)
+        T = idx.shape[0]
+        got = self.by_T.get(T)
+        n = (~keep).sum()
+        self.by_T[T] = n if got is None else got + n
+        return keep, row
+
+    def summary(self, eng):
+        """{"decode": dropped per decode (or verify) step, "prefill":
+        dropped per prefill, summed over the MoE layers}."""
+        by_T = {T: int(v) for T, v in self.by_T.items()}
+        pre = by_T.pop(eng.prefill_len, 0)
+        return {"decode": sum(by_T.values()) / max(eng.decode_steps, 1),
+                "prefill": pre / max(eng.prefills, 1)}
+
+
 @contextlib.contextmanager
 def hooked(eng, hooks):
     """``hooks`` (``LaunchCheck``, ``WireTrace``) watch ``eng`` while
@@ -1251,6 +1444,8 @@ def hooked(eng, hooks):
     finally:
         for p in reversed(patches):
             p.__exit__(None, None, None)
+        for h in hooks:
+            h.eng = None         # a kept hook must not keep the engine
 
 
 def serve(cfg, params, requests, kernel, device="cuda", hooks=(),
@@ -1363,39 +1558,51 @@ def snn_roundtrips(eng):
     return eng.cfg.n_layers * (eng.decode_steps + 2 * eng.prefills)
 
 
+def block_counts(cfg):
+    """(dense layers, MoE layers) of a config: attention then a dense MLP
+    (``attn``, ``global``, ``local``), or attention then the MoE FFN
+    (``attn_moe``), whose block has no coded exchange at world size 1."""
+    moe = cfg.pattern.count("attn_moe") * cfg.n_units
+    return cfg.n_layers - moe, moe
+
+
 def expected_launches(codec, walk, eng, shadow=False):
     """Launches of each kernel in one engine run: paged decode once per
     layer and decode (or verify) step on the kernel walk; ``lif_encode``
-    at each of a layer's 4 coded boundaries per decode step (2 wire
-    roundtrips, 2 coded psums) and per prefill (2 coded gathers, 2 coded
-    reduce-scatters) under ``spike``, and at each SNN roundtrip in SNN
-    mode; ``pack4`` and ``unpack4`` once per coded exchange under
-    ``spike_pack4`` (``unpack4`` as ``unpack4_decode``): 2 per layer and
-    decode step (the coded psums; a wire roundtrip exchanges nothing)
-    and 4 per prefill; ``count_matmul`` only with the shadow on: once
-    per consuming weight (5 per layer) per decode step and per
-    prefill."""
+    at each of a dense layer's 4 coded boundaries per decode step (2
+    wire roundtrips, 2 coded psums) and per prefill (2 coded gathers, 2
+    coded reduce-scatters) under ``spike`` — a MoE layer's 2, its
+    attention's — and at each SNN roundtrip in SNN mode; ``pack4`` and
+    ``unpack4`` once per coded exchange under ``spike_pack4``
+    (``unpack4`` as ``unpack4_decode``): 2 per dense layer and decode
+    step (the coded psums; a wire roundtrip exchanges nothing) and 4
+    per prefill, half that a MoE layer; ``count_matmul`` only with the
+    shadow on: once per consuming weight (5 per dense layer, 3 — wq,
+    wk, wv — per MoE layer) per decode step and per prefill."""
     steps, pre, L = eng.decode_steps, eng.prefills, eng.cfg.n_layers
+    dense, moe = block_counts(eng.cfg)
     want = {"paged_decode": L * steps if walk == "fused" else 0,
             "lif_encode": 0, "pack4": 0, "unpack4": 0,
-            "count_matmul": (L * SHADOW_WEIGHTS * (steps + pre)
-                             if shadow else 0),
+            "count_matmul": ((dense * SHADOW_WEIGHTS + moe * 3)
+                             * (steps + pre) if shadow else 0),
             "roundtrip_bwd": 0, "lif_encode_bwd": 0}
     if codec == "spike":
-        want["lif_encode"] = 4 * L * (steps + pre) + snn_roundtrips(eng)
+        want["lif_encode"] = ((4 * dense + 2 * moe) * (steps + pre)
+                              + snn_roundtrips(eng))
     if codec == "spike_pack4":
-        want["pack4"] = want["unpack4"] = L * (2 * steps + 4 * pre)
+        want["pack4"] = want["unpack4"] = (dense * (2 * steps + 4 * pre)
+                                           + moe * (steps + 2 * pre))
     return want
 
 
 def check_fused_variants(label, codec, check, want, eng):
     """The served roundtrips took the decode epilogue, the served packs
     the fused bias, the served unpacks the fused unbias and decode:
-    every wire roundtrip (and SNN roundtrip) is a ``lif_encode`` launch
-    with the epilogue, every pack a ``pack4_counts``, every unpack an
-    ``unpack4_decode``."""
-    roundtrips = 2 * eng.cfg.n_layers * eng.decode_steps + snn_roundtrips(
-        eng)
+    every wire roundtrip (2 a dense layer, 1 a MoE layer, and every SNN
+    roundtrip) is a ``lif_encode`` launch with the epilogue, every pack
+    a ``pack4_counts``, every unpack an ``unpack4_decode``."""
+    dense, moe = block_counts(eng.cfg)
+    roundtrips = (2 * dense + moe) * eng.decode_steps + snn_roundtrips(eng)
     fused_want = {"epilogues": roundtrips if codec == "spike" else 0,
                   "pack4_counts": want["pack4"], "pack4": 0,
                   "unpack4_decode": want["unpack4"], "unpack4": 0}
@@ -1458,10 +1665,13 @@ def serve_codec(cfg, params, requests, codec, shadow=False,
           f"tok/s, median decode step {1e3 * np.median(steps_r):.3f} ms",
           flush=True)
     tr_f, check = WireTrace(trace_prefill), LaunchCheck()
+    moe = block_counts(cfg)[1] > 0
+    drops = DropCount()
     ops.reset_launch_counts()
     traced, _, eng_t, *_ = serve(cfg_c, params, requests, "fused",
-                                 hooks=(tr_f, check), shadow=shadow,
-                                 **knobs)
+                                 hooks=(tr_f, check) + ((drops,) if moe
+                                                        else ()),
+                                 shadow=shadow, **knobs)
     checked = ops.launch_counts()
     if traced != fused:
         raise AssertionError(f"{label}: two kernel-walk runs gave different "
@@ -1474,13 +1684,21 @@ def serve_codec(cfg, params, requests, codec, shadow=False,
     if tr_f.schedule != tr_r.schedule:
         raise AssertionError(f"{label}: the traced runs took different "
                              "schedules")
+    kinds = {}
     cut, splits = rounding_splits(tr_f, tr_r, fused, ref,
-                                  2.0**-7 if bf16 else 1e-4)
+                                  2.0**-7 if bf16 else 1e-4, kinds)
     first = ", ".join(f"{n} at {kind} (values rounded from within "
                       f"{gap:.2g} of each other)"
                       for kind, (n, gap) in sorted(splits.items()))
     compared, by_split, by_margin = check_streams(fused, ref, ref_margins,
                                                   cut)
+    if moe:
+        drops = drops.summary(eng_t)
+        print(f"moe {label}: dropped assignments {drops}; "
+              f"{agreement_rules(fused, ref, ref_margins, cut, kinds)}",
+              flush=True)
+    else:
+        drops = None
     shadowed = (f"; count matmul shadow: {check.launches['count_matmul']} "
                 f"launches checked, {check.cm_off} of {check.cm_outputs} "
                 f"bf16 outputs one or more bf16 steps from the rounding of "
@@ -1500,7 +1718,26 @@ def serve_codec(cfg, params, requests, codec, shadow=False,
           f"that rounded the other way [{first}], {by_margin} up to a margin "
           f"<= {MARGIN}",
           flush=True)
-    return launches, check, tok_s, step_ms, checked, digest, (fused, margins)
+    return (launches, check, tok_s, step_ms, checked, digest,
+            (fused, margins), drops)
+
+
+def agreement_rules(fused, ref, ref_margins, cut, kinds):
+    """Which rule ended each request's agreement of two walks: the token
+    index and the split kind (``rounding_splits``), a margin of at most
+    MARGIN, or none (agreed to the end)."""
+    out = {}
+    for rid in sorted(ref):
+        m = next((t for t, v in enumerate(ref_margins[rid]) if v <= MARGIN),
+                 None)
+        c = cut.get(rid)
+        if c is not None and (m is None or c <= m):
+            out[rid] = f"{kinds[rid]} split at token {c}"
+        elif m is not None:
+            out[rid] = f"margin at token {m}"
+        else:
+            out[rid] = "agreed to the end"
+    return f"agreement ended by: {out}"
 
 
 #: draft tokens per verify step of the spec phase: K1 = SPEC_K + 1
@@ -1531,13 +1768,19 @@ def serve_spec(cfg, params, requests, codec):
     first coded value that rounds the other way (both runs traced by
     ``WireTrace``; a verify step multiplies [16, 1024] rows where a
     decode step multiplies [4, 1024], and the two may round apart) or
-    a ``spec_k=0`` margin of 1e-4.  Returns a summary dict."""
+    a ``spec_k=0`` margin of 1e-4.  A config with MoE blocks is not held
+    to that rule (capacity depends on the step's token count, so a
+    ``spec_k=3`` run routes at another C than a ``spec_k=0`` one): its
+    agreement and both runs' dropped assignments are printed.  Returns
+    a summary dict."""
     from repro_torch.kernels import ops
     cfg_c = cfg.replace(codec=codec)
     label = f"{arch_label(cfg)}{cfg.hnn_mode}/{codec}"
     coded = cfg_c.hnn_mode != "ann" and codec != "none"
-    van, van_margins, eng_v, secs_v, steps_v = serve(cfg_c, params, requests,
-                                                     "fused")
+    gate = block_counts(cfg)[1] == 0
+    drops_v, drops_s = DropCount(), DropCount()
+    van, van_margins, eng_v, secs_v, steps_v = serve(
+        cfg_c, params, requests, "fused", hooks=() if gate else (drops_v,))
     ops.reset_launch_counts()
     spec, _, eng, secs, steps = serve(cfg_c, params, requests, "fused",
                                       spec_k=SPEC_K)
@@ -1553,12 +1796,14 @@ def serve_spec(cfg, params, requests, codec):
             raise AssertionError(f"spec {label} request {rid}: bad stream "
                                  f"{spec[rid]}")
     tr_v, tr_s, check = WireTrace(), WireTrace(), LaunchCheck()
-    if coded:
+    trace = coded and gate
+    if trace:
         serve(cfg_c, params, requests, "fused", hooks=(tr_v,))
     ops.reset_launch_counts()
     traced, _, eng_t, *_ = serve(
         cfg_c, params, requests, "fused", spec_k=SPEC_K,
-        hooks=(tr_s, check) if coded else (check,))
+        hooks=((tr_s, check) if trace else (check,))
+        + (() if gate else (drops_s,)))
     if traced != spec:
         raise AssertionError(f"spec {label}: two runs gave different "
                              "streams")
@@ -1571,11 +1816,22 @@ def serve_spec(cfg, params, requests, codec):
                              f"{check.launches}, K1 {dict(check.k1)}, "
                              f"expected {want_t}")
     check_fused_variants(f"spec {label}", codec, check, want_t, eng_t)
-    cut, splits = (rounding_splits(tr_s, tr_v, spec, van) if coded
-                   else ({}, {}))
-    compared, by_split, by_margin = check_streams(spec, van, van_margins,
-                                                  cut)
     n_tok = sum(len(v) for v in spec.values())
+    if not gate:
+        agree = {rid: next((t for t, (x, y) in enumerate(zip(spec[rid],
+                                                             van[rid]))
+                            if x != y), len(spec[rid])) for rid in spec}
+        moe_drops = {"spec_k=3": drops_s.summary(eng_t),
+                     "spec_k=0": drops_v.summary(eng_v)}
+        print(f"spec {label} (not gated): spec == spec_k=0 on "
+              f"{sum(agree.values())} of {n_tok} tokens, each request up "
+              f"to token {agree}; dropped assignments {moe_drops}",
+              flush=True)
+    cut, splits = (rounding_splits(tr_s, tr_v, spec, van) if trace
+                   else ({}, {}))
+    compared, by_split, by_margin = (
+        check_streams(spec, van, van_margins, cut) if gate
+        else (sum(agree.values()), 0, 0))
     out = {"launches": launches, "verify_steps": eng.decode_steps,
            "decode_steps_spec_k0": eng_v.decode_steps,
            "mean_accepted_len": eng.mean_accepted_len(),
@@ -1586,6 +1842,10 @@ def serve_spec(cfg, params, requests, codec):
            "cut_by_margin": by_margin,
            "split_points": {str(r): t for r, t in sorted(cut.items())},
            "streams_sha256": streams_digest(spec)}
+    if not gate:
+        out.update(gated=False, agree_up_to={str(r): t for r, t in
+                                             sorted(agree.items())},
+                   dropped=moe_drops)
     first = ", ".join(f"{n} at {kind} (values rounded from within "
                       f"{gap:.2g} of each other)"
                       for kind, (n, gap) in sorted(splits.items()))
@@ -1980,7 +2240,8 @@ def kernels_per_step(cfg, params, codec):
     without a warm-up step), so the step starts 0.1 s in.  Returns
     ({"kernels": CUDA kernels, "memory_ops": copies and sets}, {kernel
     name: launches}), or None when the profiler records no device
-    activity."""
+    activity.  The first dict also holds the step's summed device time
+    and its wall time under the profiler (``device_ms``, ``wall_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import EngineConfig, Request, ServingEngine
@@ -1998,20 +2259,26 @@ def kernels_per_step(cfg, params, codec):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(0.1)
+        t0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     if (eng.prefills, eng.decode_steps, eng.num_active) != (pre, steps + 1,
                                                              4):
         raise AssertionError(f"{codec}: the profiled step was not one "
                              "decode step of four slots")
-    dev = [e.name for e in prof.events()
+    dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return None
-    names = collections.Counter(dev)
+    names = collections.Counter(e.name for e in dev)
     mem = sum(n for k, n in names.items() if k.startswith(("Memcpy",
                                                            "Memset")))
-    return {"kernels": len(dev) - mem, "memory_ops": mem}, names
+    # the step's device time (one stream: no overlap) against its wall
+    # time under the profiler: the device's busy share
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return {"kernels": len(dev) - mem, "memory_ops": mem,
+            "device_ms": busy, "wall_ms": wall * 1e3}, names
 
 
 #: the published widths each served config must have (its config
@@ -2025,16 +2292,25 @@ WIDTHS = {
                       tie_embeddings=True),
     "granite-20b": dict(d_model=6144, n_heads=48, n_kv_heads=1, d_head=128,
                         d_ff=24576, vocab=49152),
+    "qwen2-moe-a2.7b": dict(d_model=2048, n_heads=16,
+                            n_kv_heads=16, d_head=128, vocab=151936,
+                            n_experts=60, top_k=4, n_shared_experts=4,
+                            d_ff_expert=1408, qkv_bias=True),
+    "llama4-maverick-400b-a17b": dict(
+        d_model=5120, n_heads=40, n_kv_heads=8, d_head=128, d_ff=8192,
+        vocab=202048, n_experts=128, top_k=1, n_shared_experts=1,
+        d_ff_expert=8192, pattern=("attn", "attn_moe")),
 }
 
 
-def full_width(arch, n_layers=None):
-    """A registered config at its published widths in float32 (depth cut
-    to ``n_layers`` if given) and its seeded weights on the card."""
+def full_width(arch, n_layers=None, dtype=torch.float32):
+    """A registered config at its published widths in ``dtype`` (float32
+    unless given; depth cut to ``n_layers`` if given) and its seeded
+    weights on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import model_defs
     from repro_torch.models.params import init_params
-    cfg = get_config(arch).replace(dtype=torch.float32)
+    cfg = get_config(arch).replace(dtype=dtype)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
     got = {k: getattr(cfg, k) for k in WIDTHS[arch]}
@@ -2050,9 +2326,12 @@ def serve_ann(cfg, params, requests, **knobs):
     it and read just after (one paged-decode launch per layer and decode
     step); the kernel walk again with every paged-decode launch checked
     on its live inputs (the same streams); the reference walk, whose
-    streams the kernel walk's must equal up to the margin rule.  Returns
-    what ``serve_codec`` returns (the ``LaunchCheck`` of the checked
-    run; no traced wire)."""
+    streams the kernel walk's must equal up to the margin rule.  With
+    MoE blocks both are traced at their routers (``WireTrace``, decode
+    steps), and a request may also part at a routing or capacity split
+    (``rounding_splits``); their drops are counted.  Returns what
+    ``serve_codec`` returns (the ``LaunchCheck`` of the checked run; no
+    traced wire)."""
     from repro_torch.kernels import ops
     cfg_a = cfg.replace(hnn_mode="ann", codec="none")
     label = f"{arch_label(cfg)}ann/none"
@@ -2065,17 +2344,36 @@ def serve_ann(cfg, params, requests, **knobs):
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want} for {eng.decode_steps} decode steps")
     check = LaunchCheck()
+    # a MoE config's router may split the walks: trace it
+    moe = block_counts(cfg)[1] > 0
+    tr_f, tr_r, drops = WireTrace(False), WireTrace(False), DropCount()
     ops.reset_launch_counts()
-    checked_streams, *_ = serve(cfg_a, params, requests, "fused",
-                                hooks=(check,), **knobs)
+    checked_streams, _, eng_t, *_ = serve(
+        cfg_a, params, requests, "fused",
+        hooks=(check,) + ((tr_f, drops) if moe else ()), **knobs)
     checked = ops.launch_counts()
     if checked_streams != fused or check.launches["paged_decode"] != want[
             "paged_decode"]:
         raise AssertionError(f"{label}: the checked run served other "
                              f"streams or checked {dict(check.launches)}")
     ref, ref_margins, *_ = serve(cfg_a, params, requests, "reference",
-                                 **knobs)
-    compared, _, by_margin = check_streams(fused, ref, ref_margins)
+                                 hooks=(tr_r,) if moe else (), **knobs)
+    cut, kinds = {}, {}
+    if moe:
+        if tr_f.schedule != tr_r.schedule:
+            raise AssertionError(f"{label}: the traced runs took different "
+                                 "schedules")
+        bf16 = cfg.dtype == torch.bfloat16
+        cut, _ = rounding_splits(tr_f, tr_r, fused, ref,
+                                 2.0**-7 if bf16 else 1e-4, kinds)
+        drops = drops.summary(eng_t)
+        print(f"moe {label}: dropped assignments {drops}; "
+              f"{agreement_rules(fused, ref, ref_margins, cut, kinds)}",
+              flush=True)
+    else:
+        drops = None
+    compared, by_split, by_margin = check_streams(fused, ref, ref_margins,
+                                                  cut)
     n_tok = sum(len(v) for v in fused.values())
     tok_s, step_ms = n_tok / secs, 1e3 * float(np.median(steps))
     digest = streams_digest(fused)
@@ -2086,8 +2384,10 @@ def serve_ann(cfg, params, requests, **knobs):
           f"{check.launches['paged_decode']} paged-decode launches held to "
           f"the plain version on their live inputs; fused == reference on "
           f"{compared} of {n_tok} tokens ({by_margin} requests compared up "
-          f"to a margin <= {MARGIN})", flush=True)
-    return launches, check, tok_s, step_ms, checked, digest, (fused, margins)
+          f"to a margin <= {MARGIN}, {by_split} up to a routing or "
+          "capacity split)", flush=True)
+    return (launches, check, tok_s, step_ms, checked, digest,
+            (fused, margins), drops)
 
 
 #: the long-context serve: two prompts past the gemma2 window
@@ -2222,6 +2522,108 @@ def serve_granite():
     return runs, spec
 
 
+#: the MoE family in the smoke: qwen2-moe-a2.7b at its full depth and
+#: width (14.32 B parameters, 53.4 GiB in float32), llama4-maverick at
+#: one of its 24 units (a dense and a MoE block of 128 experts; its
+#: full depth is beyond one card) in its published bfloat16, and
+#: qwen2-moe's training at 2 of its 24 layers
+QWEN2MOE = "qwen2-moe-a2.7b"
+LLAMA4 = "llama4-maverick-400b-a17b"
+LLAMA4_LAYERS = 2
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 20
+MOE_TRAIN_CODECS = (("hnn", "spike_fused"), ("hnn", "spike"))
+
+
+def free_card():
+    """Release what the models of a finished phase left on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_qwen2moe():
+    """Full-width ``qwen2-moe-a2.7b`` (24 layers, d_model 2048, 16 MHA
+    heads of 128 with QKV biases, 60 experts top-4 of 1408 and 4 shared,
+    vocab 151936) in float32 with seeded weights: the main path's
+    requests under ANN ``none``, ``spike_fused`` and ``spike`` (its
+    ``spike_pack4`` run was cut for time; both walks, every live launch checked, the walks
+    agreeing up to a rounding, routing or capacity split), the
+    ``spike_fused`` run served once more for the same bits (streams and
+    every margin), and the cyclic prompts under ``spike_fused`` at
+    ``spec_k`` 3 beside 0 (agreement and drops printed, not gated);
+    then the CUDA kernels of one decode step under ``spike_fused``.
+    Returns (runs, spec summary, kernels per step)."""
+    cfg, params = full_width(QWEN2MOE)
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"{QWEN2MOE}: {n_par} parameters in float32, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card",
+          flush=True)
+    requests = smoke_requests(cfg.vocab)[1]
+    serve(cfg, params, [(p, 4) for p, _ in requests[:2]], "fused")
+    runs = {"ann/none": serve_ann(cfg, params, requests)}
+    # decode rows traced only: the walks are compared there
+    for codec in ("spike_fused", "spike"):
+        runs[codec] = serve_codec(cfg, params, requests, codec,
+                                  trace_prefill=False)
+    again, margins, *_ = serve(cfg, params, requests, "fused")
+    first, first_margins = runs["spike_fused"][6]
+    if again != first or margins != first_margins:
+        raise AssertionError(f"{QWEN2MOE} spike_fused: a second serve gave "
+                             "other bits")
+    print(f"{QWEN2MOE} spike_fused: served again, the same streams and "
+          "every margin equal", flush=True)
+    spec = serve_spec(cfg, params, spec_requests(), "spike_fused")
+    got = kernels_per_step(cfg, params, "spike_fused")
+    if got is None:
+        raise AssertionError(f"kernels per decode step {QWEN2MOE}: the "
+                             "profiler recorded no device activity")
+    counts, names = got
+    top = ", ".join(f"{n} x {k[:48]}" for k, n in names.most_common(6))
+    print(f"kernels per decode step {QWEN2MOE} spike_fused: {counts} (most "
+          f"launched: {top})", flush=True)
+    del params
+    free_card()
+    return runs, spec, counts
+
+
+def serve_llama4():
+    """Full-width ``llama4-maverick-400b-a17b`` (d_model 5120, 40 heads
+    on 8 kv heads of 128, 128 experts top-1 of 8192 and one shared,
+    vocab 202048) at ``LLAMA4_LAYERS`` = 2 layers — one unit: a dense
+    block and a MoE block — in bfloat16 with seeded weights: the main
+    path's requests under ANN ``none`` and ``spike_fused`` (both walks,
+    every live launch checked, the split rule; its ``spec_k=3`` runs were
+    cut for time).  Returns the runs."""
+    cfg, params = full_width(LLAMA4, LLAMA4_LAYERS, torch.bfloat16)
+    n_par = sum(t.numel() for t in _leaves(params))
+    print(f"{LLAMA4} at {cfg.n_layers} layers: {n_par} parameters in "
+          f"bfloat16, {torch.cuda.memory_allocated() / 2**30:.1f} GiB on "
+          "the card", flush=True)
+    requests = smoke_requests(cfg.vocab)[1]
+    serve(cfg, params, [(p, 4) for p, _ in requests[:2]], "fused")
+    runs = {"ann/none": serve_ann(cfg, params, requests),
+            "spike_fused": serve_codec(cfg, params, requests,
+                                       "spike_fused", trace_prefill=False)}
+    del params
+    free_card()
+    return runs
+
+
+def train_moe():
+    """Full-width ``qwen2-moe-a2.7b`` at ``MOE_TRAIN_LAYERS`` = 2 layers,
+    f32: ``MOE_TRAIN_STEPS`` = 20 AdamW steps (the dense runs' data,
+    microbatches and optimizer) under ``spike_fused`` and ``spike``, each
+    held as ``train_run`` holds the dense runs (each MoE layer's
+    ``sp_disp`` moved by the first step, its ``sp_comb`` gradient exactly
+    0)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(**TRAIN_DATA))
+    return {f"{hnn}/{codec}": train_run(hnn, codec, data, arch=QWEN2MOE,
+                                        n_layers=MOE_TRAIN_LAYERS,
+                                        steps=MOE_TRAIN_STEPS)
+            for hnn, codec in MOE_TRAIN_CODECS}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2279,6 +2681,11 @@ TRAIN_SHAPES = ((1024, 1024), (2048, 1024), (37, 1024))
 TRAIN_CODECS = (("ann", "none"), ("hnn", "spike_fused"), ("hnn", "spike"),
                 ("hnn", "spike_pack4"), ("hnn", "spike_fused+bwd8"))
 TRAIN_STEPS = 30
+#: the depth at which the dense training runs train qwen1.5-0.5b (of its
+#: 24 layers; widths not cut): host-bound 24-layer steps took the phase
+#: to 290-390 s and the whole smoke to 1112 s of its 1200 s on a slower
+#: host, once the MoE family's phase was added
+TRAIN_LAYERS = 8
 TRAIN_MICRO = 2
 TRAIN_DATA = dict(vocab=256, seq_len=256, global_batch=8, seed=0)
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
@@ -2407,26 +2814,30 @@ def time_train_kernels(samples, flush):
     return out
 
 
-def train_launches(codec, n_layers, n_micro):
-    """Kernel launches of one train step: per layer and microbatch,
+def train_launches(codec, cfg, n_micro):
+    """Kernel launches of one train step: per dense layer and microbatch,
     ``roundtrip_bwd`` at each of the 4 coded collectives' backward under
     a spike codec; under ``spike``, ``lif_encode_bwd`` at each of the 2
     boundary penalties' backward, and ``lif_encode`` at the 4 coded
     collectives and the 2 penalties, in the forward and again in the
     per-block recompute of the backward; under ``spike_pack4``,
     ``pack4`` and ``unpack4`` at the 4 coded collectives, forward and
-    recompute."""
+    recompute.  A MoE layer has 2 coded collectives (its attention's; the
+    MoE block has none at world size 1) and 2 penalties (``sp_in`` and
+    the MoE block's ``sp_disp``)."""
     want = {k: 0 for k in ("paged_decode", "lif_encode", "count_matmul",
                            "pack4", "unpack4") + TRAIN_KERNELS}
-    n = n_layers * n_micro
+    dense, moe = block_counts(cfg)
+    coded = (4 * dense + 2 * moe) * n_micro       # coded collectives
+    pens = (2 * dense + 2 * moe) * n_micro        # boundary penalties
     mode = codec.split("+")[0]
     if mode in ("spike", "spike_fused", "spike_pack4"):
-        want["roundtrip_bwd"] = 4 * n
+        want["roundtrip_bwd"] = coded
     if mode == "spike":
-        want["lif_encode_bwd"] = 2 * n
-        want["lif_encode"] = 2 * 6 * n
+        want["lif_encode_bwd"] = pens
+        want["lif_encode"] = 2 * (coded + pens)
     if mode == "spike_pack4":
-        want["pack4"] = want["unpack4"] = 2 * 4 * n
+        want["pack4"] = want["unpack4"] = 2 * coded
     return want
 
 
@@ -2450,7 +2861,7 @@ def grads_against_plain(cfg, params, batch):
     """One train step's gradients with the kernels and with their plain
     versions on the same params and batch: the largest ratio over the
     leaves of a leaf's largest difference to its largest entry (0 where
-    both are 0), and the global gradient norm."""
+    both are 0), the global gradient norm, and the kernels' gradients."""
     from repro_torch.launch import train as TT
     from repro_torch.optim.adamw import tree_leaves
     step = TT.make_train_step(cfg, microbatches=TRAIN_MICRO,
@@ -2466,19 +2877,32 @@ def grads_against_plain(cfg, params, batch):
         diff, top = float((a - b).abs().max()), float(b.abs().max())
         worst = max(worst, diff / top if top else (0.0 if diff == 0
                                                     else float("inf")))
-    return worst, norm
+    return worst, norm, g_k
 
 
-def train_run(hnn, codec, data):
-    """``TRAIN_STEPS`` AdamW steps of full-width qwen1.5-0.5b (all its
-    layers, f32, seeded init) under one codec: losses, penalties,
-    occupancies and firing rates per step, the median step time, the
-    peak memory, the launches per step; raises if a loss or grad norm
-    is not finite, if the loss does not fall by 1 nat (the mean of the
-    last 5 steps against step 0), if a boundary's theta or log_scale
-    has not moved after the first step under a spike codec, if a
-    kernel's launches per step are not the path's, or if, under a spike
-    codec, a leaf of the kernels' gradients parts from the plain
+def learned_boundaries(kind):
+    """(the boundaries of a block kind whose theta and log_scale learn at
+    world size 1, those that get no gradient there): a MoE block's
+    ``sp_disp`` learns from its penalty; its ``sp_comb`` codes the
+    combine exchange of tp > 1 only."""
+    if kind == "attn_moe":
+        return ("sp_in", "sp_out", "sp_disp"), ("sp_comb",)
+    return BOUNDARIES, ()
+
+
+def train_run(hnn, codec, data, arch=MAIN_ARCH, n_layers=None,
+              steps=TRAIN_STEPS):
+    """``steps`` AdamW steps of a full-width config (``arch``, f32,
+    seeded init; qwen1.5-0.5b; all its layers unless ``n_layers`` cuts
+    the depth) under one codec: losses, penalties, occupancies and
+    firing rates per step, the median step time, the peak memory, the
+    launches per step; raises if a loss or grad norm is not finite, if
+    the loss does not fall by 1 nat (the mean of the last 5 steps
+    against step 0), if a learned boundary's theta or log_scale has not
+    moved after the first step under a spike codec (or a MoE block's
+    ``sp_comb`` has a nonzero gradient or moved but by weight decay), if
+    a kernel's launches per step are not the path's, or if, under a
+    spike codec, a leaf of the kernels' gradients parts from the plain
     versions' by more than 1e-5 of that leaf's largest entry."""
     from repro_torch.core import spike
     from repro_torch.kernels import ops
@@ -2486,15 +2910,19 @@ def train_run(hnn, codec, data):
     from repro_torch.optim import adamw
     # the run's own memory: above what earlier phases still hold
     torch.cuda.synchronize()
+    t_run = time.perf_counter()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    cfg, params = full_width(MAIN_ARCH)
+    cfg, params = full_width(arch, n_layers)
     cfg = cfg.replace(hnn_mode=hnn, codec=codec)
     coded = codec != "none"
-    label = f"{hnn}/{codec}"
+    label = f"{arch_label(cfg)}{hnn}/{codec}"
     out = {}
+    learned, frozen = {}, {}
+    for i, kind in enumerate(cfg.pattern):
+        learned[f"pos{i}"], frozen[f"pos{i}"] = learned_boundaries(kind)
     if coded:
-        rel, norm = grads_against_plain(cfg, params, data.batch(0))
+        rel, norm, g_k = grads_against_plain(cfg, params, data.batch(0))
         out["grads_vs_plain"] = {"max_leaf_rel_diff": rel, "grad_norm": norm}
         print(f"train {label}: kernels against plain versions, largest "
               f"difference {rel:.3g} of its leaf's largest entry (global "
@@ -2503,12 +2931,20 @@ def train_run(hnn, codec, data):
             raise AssertionError(f"train {label}: kernel gradients part from "
                                  f"the plain versions' by {rel:.3g} of a "
                                  "leaf's largest entry")
-    init = {(b, k): params["units"]["pos0"][b][k].clone()
-            for b in BOUNDARIES for k in ("theta", "log_scale")}
+        for pos, names in frozen.items():
+            for b in names:
+                for k in ("theta", "log_scale"):
+                    if g_k["units"][pos][b][k].any():
+                        raise AssertionError(f"train {label}: {pos} {b} {k} "
+                                             "has a nonzero gradient")
+        del g_k
+    init = {(pos, b, k): params["units"][pos][b][k].clone()
+            for pos in learned for b in learned[pos] + frozen[pos]
+            for k in ("theta", "log_scale")}
     opt = adamw.init_opt_state(params)
+    opt_cfg = adamw.AdamWConfig(**{**TRAIN_OPT, "total_steps": steps})
     step = TT.make_train_step(cfg, microbatches=TRAIN_MICRO,
-                              opt_cfg=adamw.AdamWConfig(**TRAIN_OPT),
-                              device=TRAIN_DEVICE)
+                              opt_cfg=opt_cfg, device=TRAIN_DEVICE)
     rates = []
     real = spike.sparsity_loss
 
@@ -2517,11 +2953,11 @@ def train_run(hnn, codec, data):
         return real(counts, T, *a)
 
     hist, times = [], []
-    want = train_launches(codec, cfg.n_layers, TRAIN_MICRO)
+    want = train_launches(codec, cfg, TRAIN_MICRO)
     total = collections.Counter()
     spike.sparsity_loss = recorded
     try:
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             rates.clear()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
@@ -2539,13 +2975,8 @@ def train_run(hnn, codec, data):
                     rec["grad_norm"])):
                 raise AssertionError(f"train {label} step {i}: {rec}")
             if i == 0 and coded:
-                for u in range(cfg.n_layers):
-                    for (b, k), v0 in init.items():
-                        if torch.equal(params["units"]["pos0"][b][k][u],
-                                       v0[u]):
-                            raise AssertionError(
-                                f"train {label}: layer {u} {b} {k} did not "
-                                "move in the first step")
+                check_boundaries_moved(label, cfg, params, init, frozen,
+                                       opt_cfg)
             print(f"train {label} step {i}: loss {rec['loss']:.4f} penalty "
                   f"{rec['penalty']:.6f} occupancy {rec['occupancy']:.4f} "
                   f"firing rate {rec['firing_rate']:.4f} grad norm "
@@ -2555,22 +2986,46 @@ def train_run(hnn, codec, data):
         spike.sparsity_loss = real
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     out["profile"] = profile_train_step(step, params, opt,
-                                        data.batch(TRAIN_STEPS))
+                                        data.batch(steps))
     losses = [r["loss"] for r in hist]
     drop = losses[0] - float(np.mean(losses[-5:]))
     if drop < TRAIN_MIN_DROP:
         raise AssertionError(f"train {label}: loss fell by {drop:.3f} nat, "
                              f"less than {TRAIN_MIN_DROP}")
-    out.update({"steps": TRAIN_STEPS, "loss_drop": drop,
+    out.update({"steps": steps, "loss_drop": drop,
+                "run_seconds": time.perf_counter() - t_run,
                 "median_step_ms": float(np.median(times[1:])) * 1e3,
                 "first_step_ms": times[0] * 1e3, "peak_gib": peak,
                 "launches_per_step": want, "launches": dict(total),
                 "history": {k: [r[k] for r in hist] for k in hist[0]}})
     print(f"train {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of "
           f"the last 5 {losses[0] - drop:.4f}), median step "
-          f"{out['median_step_ms']:.1f} ms, peak memory {peak:.2f} GiB, "
+          f"{out['median_step_ms']:.1f} ms, the run {out['run_seconds']:.1f} "
+          f"s, peak memory {peak:.2f} GiB, "
           f"launches per step {want}", flush=True)
     return out
+
+
+def check_boundaries_moved(label, cfg, params, init, frozen, opt_cfg):
+    """After the first step: every unit's learned boundaries moved, and
+    each frozen one (gradient exactly 0) moved by its weight decay alone,
+    ``p - lr * wd * p`` (a stacked [U, D] leaf is decayed as a
+    matrix)."""
+    from repro_torch.optim import adamw
+    lr = adamw.schedule(opt_cfg, torch.ones((), dtype=torch.int32,
+                                            device=TRAIN_DEVICE))
+    for (pos, b, k), v0 in init.items():
+        now = params["units"][pos][b][k]
+        if b in frozen[pos]:
+            want = v0 - lr * (opt_cfg.weight_decay * v0)
+            if not torch.allclose(now, want, rtol=1e-6, atol=0.0):
+                raise AssertionError(f"train {label}: {pos} {b} {k} moved "
+                                     "by more than its weight decay")
+            continue
+        for u in range(cfg.n_units):
+            if torch.equal(now[u], v0[u]):
+                raise AssertionError(f"train {label}: unit {u} {pos} {b} "
+                                     f"{k} did not move in the first step")
 
 
 def profile_train_step(step, params, opt, batch):
@@ -2640,7 +3095,8 @@ def train_runs():
     """The five full-width training runs and the CLI's resume."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     data = SyntheticLM(DataConfig(**TRAIN_DATA))
-    runs = {f"{hnn}/{codec}": train_run(hnn, codec, data)
+    runs = {f"{hnn}/{codec}": train_run(hnn, codec, data,
+                                        n_layers=TRAIN_LAYERS)
             for hnn, codec in TRAIN_CODECS}
     return runs, train_cli_resume()
 
@@ -2745,7 +3201,8 @@ def main(argv) -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.cases import ARCH_CASES, CASES, case_arrays
+    from repro_torch.kernels.cases import (ARCH_CASES, CASES,
+                                           MOE_CASE_POOL, case_arrays)
     from repro_torch.models.model import model_defs
     from repro_torch.models.params import init_params
 
@@ -2898,6 +3355,27 @@ def main(argv) -> int:
     clock.mark("gemma2-2b")
     gr_runs, gr_spec = serve_granite()
     clock.mark("granite-20b")
+    # the MoE family: every earlier model freed first (qwen2-moe's
+    # weights take 53.4 GiB of the card)
+    del params
+    free_card()
+    print(f"before the MoE family: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          " GiB allocated on the card", flush=True)
+    q_runs, q_spec, q_kernels = serve_qwen2moe()
+    clock.mark(QWEN2MOE)
+    l_runs = serve_llama4()
+    clock.mark(LLAMA4)
+    moe_train = train_moe()
+    print(json.dumps({"moe": {
+        "serve": {f"{arch} {k}": {"tok_s": r[2], "median_step_ms": r[3],
+                                  "streams_sha256": r[5], "dropped": r[7],
+                                  "launches": r[0]}
+                  for arch, rs in ((QWEN2MOE, q_runs), (LLAMA4, l_runs))
+                  for k, r in rs.items()},
+        "spec": {f"{QWEN2MOE} spike_fused": q_spec},
+        "kernels_per_decode_step": {f"{QWEN2MOE} spike_fused": q_kernels},
+        "train": moe_train, "card": card}}), flush=True)
+    clock.mark("MoE training")
     serve_line = dict(runs)
     serve_line.update((f"gemma2-2b {k}", r) for k, r in g_runs.items())
     serve_line["gemma2-2b long/spike_fused"] = g_long
@@ -2953,22 +3431,42 @@ def main(argv) -> int:
                                           K1=SPEC_K + 1),
          0, 0.0, gr_spec["spike_fused"]["launches"]["paged_decode"]),
     ]
-    shapes += [(name,) + case_arrays(name) + (None,) for name in ARCH_CASES]
+    f32 = torch.float32
+    shapes = [row + (f32,) for row in shapes]
+    # the MoE family's decode and verify shapes: qwen2-moe's f32 pool,
+    # llama4's bf16 one (its spike_fused runs' launches)
+    # (llama4's verify shape: its spec runs were cut for time; 0
+    # launches)
+    for arch, pool, run, verify_launches in (
+            (QWEN2MOE, f32, q_runs["spike_fused"],
+             q_spec["launches"]["paged_decode"]),
+            (LLAMA4, torch.bfloat16, l_runs["spike_fused"], 0)):
+        cfg_m = get_config(arch)
+        m_lens = [int(L) + 16 for L in smoke_requests(cfg_m.vocab)[0][:4]]
+        shapes += [(f"{arch} decode", serve_case(cfg_m, m_lens), 0, 0.0,
+                    run[0]["paged_decode"], pool),
+                   (f"{arch} verify", serve_case(cfg_m, m_lens,
+                                                 K1=SPEC_K + 1), 0, 0.0,
+                    verify_launches, pool)]
+    shapes += [(name,) + case_arrays(name)
+               + (None, getattr(torch, MOE_CASE_POOL.get(name, "float32")))
+               for name in ARCH_CASES]
     paged = []
-    for name, arrays, window, cap, launches in shapes:
-        ms, plain_ms, lib_ms, bound_ms, bound_by = time_paged(arrays, window,
-                                                              cap)
+    for name, arrays, window, cap, launches, pool in shapes:
+        ms, plain_ms, lib_ms, bound_ms, bound_by = time_paged(
+            arrays, window, cap, pool)
+        plan = launch_plan_of(arrays, pool)
         paged.append({"name": name, "shape": list(arrays[0].shape),
                       "K1": int(arrays[0].shape[1]), "window": window,
-                      "cap": cap, "launches": launches, "ms": ms,
+                      "cap": cap, "pool": str(pool)[6:],
+                      "launches": launches, "ms": ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      **launch_plan_of(arrays)})
+                      "bound_ms": bound_ms, "bound_by": bound_by, **plan})
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"paged_decode {name} {list(arrays[0].shape)}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib}, bound "
-              f"{bound_ms:.5f} ms ({bound_by}), launches {launches}, "
-              f"plan {launch_plan_of(arrays)}", flush=True)
+        print(f"paged_decode {name} {list(arrays[0].shape)} "
+              f"{str(pool)[6:]} pool: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib}, bound {bound_ms:.5f} ms "
+              f"({bound_by}), launches {launches}, plan {plan}", flush=True)
     kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": SOURCE["paged_decode"], "replaces": REPLACES["paged_decode"],
@@ -2979,6 +3477,9 @@ def main(argv) -> int:
 
     flush = torch.empty(96 * 2**20 // 4, dtype=torch.float32, device="cuda")
     kernels.extend(time_boundary_kernels(runs, errs, flush))
+    for name, rows in time_moe_boundaries(q_runs, flush).items():
+        next(k for k in kernels if k["name"] == name)["by_shape"].extend(
+            rows)
     kernels.extend(train_kernel_entries(t_errs, t_samples, t_runs, flush))
 
     # the count matmul on the bf16 spike run's live wire counts, at the
@@ -3019,7 +3520,6 @@ def main(argv) -> int:
     clock.mark("kernel timings")
     # after every timing, so that the profiler's device tracing cannot
     # touch one; at the main path's full depth
-    del params
     cfg, params = full_width(MAIN_ARCH)
     count_step_kernels("this checkout", cfg, params)
     clock.mark("kernels per decode step")

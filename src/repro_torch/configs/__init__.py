@@ -1,8 +1,10 @@
 """Architecture registry: ``get_config(name)``; ``reduced.reduced(cfg)``.
 
-Only the architectures the port can run are registered (the dense
-attention family: ``qwen1.5-0.5b``, ``qwen1.5-4b``, ``gemma2-2b``,
-``granite-20b``); the others join with their model families.
+Only the architectures the port can run are registered: the dense
+attention family (``qwen1.5-0.5b``, ``qwen1.5-4b``, ``gemma2-2b``,
+``granite-20b``) and the MoE family (``qwen2-moe-a2.7b``,
+``llama4-maverick-400b-a17b``); the others join with their model
+families.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ def register(fn):
 
 
 def _load_all():
-    from . import (gemma2_2b, granite_20b, qwen1_5_0_5b,  # noqa: F401
-                   qwen1_5_4b)
+    from . import (gemma2_2b, granite_20b, llama4_maverick,  # noqa: F401
+                   qwen1_5_0_5b, qwen1_5_4b, qwen2_moe_a2_7b)
 
 
 def get_config(name: str, **overrides) -> ModelConfig:

@@ -10,12 +10,13 @@ from a numpy ``RandomState`` or built exactly:
   pool rows, ascending positions) with each slot's queries at its write
   frontier, K1 = 1 to 4 queries a slot (``verify_mha_k1_4`` is the
   speculative verify step's serve shape; ``gemma2_local_*``,
-  ``granite_mqa_*`` and ``qwen4b_mha_k1_4`` the other registered
-  configs' decode and verify shapes);
+  ``granite_mqa_*``, ``qwen4b_mha_k1_4``, ``qwen2moe_mha_*`` and
+  ``llama4_gqa_*`` the other registered configs' decode and verify
+  shapes);
 * ``lif_encode``: random activations, thresholds and scales; drives
   that land on and next to a half-integer tick count (where the IF
   encoder and the closed form part); zeros, -0.0, saturation and zero
-  thresholds;
+  thresholds; the MoE family's widths (``moe_m{rows}_c{width}``);
 * ``pack4`` / ``unpack4``: every byte value, and random 4-bit wires of
   ragged row counts; ``pack4_counts``: signed counts in {-T..T} of the
   same shapes; ``unpack4_decode``: the same bytes with log-scales of 0
@@ -100,13 +101,30 @@ CASES = {
                               P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
     "qwen4b_mha_k1_4": (dict(seed=14, B=4, K1=4, Hq=20, Hkv=20, dh=128,
                              P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
+    # the MoE family's attention: qwen2-moe-a2.7b's 16 MHA heads of 128
+    # (served in float32) and llama4-maverick's 40 heads on 8 kv heads
+    # of 128 (5 query heads a kv head, 20 rows in a verify step; served
+    # in bfloat16), at K1 = 1 and 4
+    "qwen2moe_mha_k1": (dict(seed=15, B=4, K1=1, Hq=16, Hkv=16, dh=128,
+                             P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
+    "qwen2moe_mha_k1_4": (dict(seed=16, B=4, K1=4, Hq=16, Hkv=16, dh=128,
+                               P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
+    "llama4_gqa_k1": (dict(seed=17, B=4, K1=1, Hq=40, Hkv=8, dh=128,
+                           P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
+    "llama4_gqa_k1_4": (dict(seed=18, B=4, K1=4, Hq=40, Hkv=8, dh=128,
+                             P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
 }
 
 
 #: the cases of the configs other than the main path's (their decode
 #: and verify shapes)
 ARCH_CASES = ("gemma2_local_k1", "gemma2_local_k1_4", "granite_mqa_k1",
-              "granite_mqa_k1_4", "qwen4b_mha_k1_4")
+              "granite_mqa_k1_4", "qwen4b_mha_k1_4", "qwen2moe_mha_k1",
+              "qwen2moe_mha_k1_4", "llama4_gqa_k1", "llama4_gqa_k1_4")
+#: each MoE case's pool dtype on its served path (the card's checks run
+#: every case in both)
+MOE_CASE_POOL = {"qwen2moe_mha_k1": "float32", "qwen2moe_mha_k1_4": "float32",
+                 "llama4_gqa_k1": "bfloat16", "llama4_gqa_k1_4": "bfloat16"}
 
 
 def case_arrays(name):
@@ -132,7 +150,12 @@ def to_tensors(arrays, device, pool_dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 LIF_CASES = ("random_t15", "random_t7", "random_bf16", "half_ticks_t15",
-             "half_ticks_t7", "edges")
+             "half_ticks_t7", "edges", "moe_m4_c2048", "moe_m4_c5120")
+#: the MoE family's boundary widths (qwen2-moe-a2.7b's d_model 2048,
+#: llama4-maverick's 5120) at a prefill's 256 rows (their decode rows,
+#: four slots, are ``moe_m4_c*`` of ``LIF_CASES``): random activations
+#: at T = 15, checked on the card only
+LIF_MOE_PREFILL_CASES = ("moe_m256_c2048", "moe_m256_c5120")
 #: rows and channels at the edges of the kernels' vector layouts (a
 #: lif_encode thread takes two channels, a pack thread 16 bytes):
 #: random activations at T = 15
@@ -181,8 +204,8 @@ def lif_case(name):
             x = torch.tensor(x).to(torch.bfloat16).float().numpy()
             return x, theta, scale, T, "bfloat16"
         return x, theta, scale, T, "float32"
-    if name.startswith("tail_"):
-        M, C = (int(v) for v in name[len("tail_m"):].split("_c"))
+    if name.startswith(("tail_", "moe_")):
+        M, C = (int(v) for v in name.split("_m", 1)[1].split("_c"))
         rng = np.random.RandomState(M * 10007 + C)
         x = (rng.standard_normal((M, C)) * 1.5).astype(np.float32)
         theta = rng.uniform(0.0, 0.3, C).astype(np.float32)
@@ -210,7 +233,8 @@ def lif_tensors(name, device):
 # pack4 / unpack4
 # ---------------------------------------------------------------------------
 
-PACK4_CASES = ("all_bytes", "wire_ragged", "wire_row")
+PACK4_CASES = ("all_bytes", "wire_ragged", "wire_row", "moe_m4_c1024",
+               "moe_m4_c2048", "moe_m4_c2560", "moe_m4_c5120")
 #: the vector layout's edges for the packs (16 bytes in a thread): the
 #: even channel counts of ``TAIL_CHANNELS``
 PACK4_TAIL_CASES = tuple(f"tail_m{M}_c{C}" for M in TAIL_ROWS
@@ -221,7 +245,14 @@ def pack4_case(name):
     """uint8 ``[M, C]`` (C even) of a named case: every byte value as 8
     rows of 32 (to pack and to unpack), random 4-bit wires — the biased
     counts of ``spike_pack4`` — over 37 rows of 18 or 1 row of 2048, or
-    (``tail_m{M}_c{C}``) random bytes of any value."""
+    (``tail_m{M}_c{C}``) random bytes of any value.  ``moe_m4_c{C}``: a
+    random 4-bit wire of four decode rows; packed, the MoE family's
+    widths 2048 and 5120 (C), and as packed bytes, unpacked to them
+    (C = 1024, 2560)."""
+    if name.startswith("moe_"):
+        M, C = (int(v) for v in name[len("moe_m"):].split("_c"))
+        return np.random.RandomState(M * 131 + C).randint(
+            0, 15, (M, C)).astype(np.uint8)
     if name == "all_bytes":
         return np.arange(256, dtype=np.uint8).reshape(8, 32)
     if name.startswith("tail_"):

@@ -1,9 +1,11 @@
 """Full model: embedding -> layer units -> LM head, at tp = 1.
 
-The port of ``repro.models.model`` for the ``("attn",)``-family
-patterns.  Parameters are a nested dict of tensors with the reference's
-structure: per-unit leaves carry a leading unit dim and the forward
-passes loop over units (the reference scans them).
+The port of ``repro.models.model`` for the attention families: the
+dense blocks (``attn``, ``global``, ``local``: attention, then a dense
+MLP) and ``attn_moe`` (attention, then the MoE FFN of ``blocks_moe``).
+Parameters are a nested dict of tensors with the reference's structure:
+per-unit leaves carry a leading unit dim and the forward passes loop
+over units (the reference scans them).
 
   forward_prefill : one right-padded prompt batch -> logits at the last
                     (or ``last_pos``) position + the prompt's KV
@@ -27,19 +29,30 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
-from . import blocks_attn, common
+from . import blocks_attn, blocks_moe, common
 from .context import Context
 from .params import pdef, spike_pdefs, stack_defs
 
 F32 = torch.float32
 
-_ATTN_KINDS = ("attn", "global", "local")
+#: the block kinds the port runs: attention, then a dense MLP or (for
+#: ``attn_moe``) the MoE FFN
+BLOCK_KINDS = ("attn", "global", "local", "attn_moe")
 
 
 def _block_defs(cfg, kind):
-    if kind not in _ATTN_KINDS:
+    if kind not in BLOCK_KINDS:
         raise NotImplementedError(f"block kind {kind!r}: not ported yet")
+    if kind == "attn_moe":
+        return {**blocks_attn.attn_defs(cfg), **blocks_moe.moe_defs(cfg)}
     return {**blocks_attn.attn_defs(cfg), **blocks_attn.mlp_defs(cfg)}
+
+
+def ffn_fwd(p, x, ctx: Context, kind):
+    """The FFN after a block's attention: x -> (x', penalty, occupancy)."""
+    if kind == "attn_moe":
+        return blocks_moe.moe_fwd(p, x, ctx)
+    return blocks_attn.mlp_fwd(p, x, ctx)
 
 
 def model_defs(cfg: ModelConfig, tp: int = 1):
@@ -109,7 +122,7 @@ def forward_prefill(params, tokens, ctx: Context, last_pos=None):
         for i, kind in enumerate(cfg.pattern):
             p = unit_p[f"pos{i}"]
             x, kv, _, _ = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
-            x, _, _ = blocks_attn.mlp_fwd(p, x, ctx)
+            x, _, _ = ffn_fwd(p, x, ctx, kind)
             caches[f"pos{i}"] = {"kv": kv}
         per_unit.append(caches)
     caches = {
@@ -146,7 +159,7 @@ def forward_logits(params, tokens, ctx: Context):
         for i, kind in enumerate(cfg.pattern):
             p = unit_p[f"pos{i}"]
             x, _, _, _ = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
-            x, _, _ = blocks_attn.mlp_fwd(p, x, ctx)
+            x, _, _ = ffn_fwd(p, x, ctx, kind)
     return lm_logits_local(params, x, ctx)
 
 
@@ -170,7 +183,7 @@ def _forward_steps(params, cache, tokens, qpos, ctx: Context, aux_extra):
             kv_u = {"k": kv["k"][u], "v": kv["v"][u]}
             x, _ = blocks_attn.attn_verify_fwd(unit_p[f"pos{i}"], x, kv_u,
                                                qpos, ctx, aux, kind=kind)
-            x, _, _ = blocks_attn.mlp_fwd(unit_p[f"pos{i}"], x, ctx)
+            x, _, _ = ffn_fwd(unit_p[f"pos{i}"], x, ctx, kind)
     h = common.norm(x, params["final_ln"], cfg.norm)
     logits = (h @ _head_w(params, cfg)).to(F32)
     if cfg.final_softcap:
@@ -264,7 +277,7 @@ def _run_stack(params, x, ctx: Context, aux):
                     p_, x_, ctx, aux, kind=k), ctx)(p, x)
             pe_u, oc_u, n = pe_u + pe, oc_u + oc, n + 1
             x, pe, oc = _ckpt(
-                lambda p_, x_: blocks_attn.mlp_fwd(p_, x_, ctx), ctx)(p, x)
+                lambda p_, x_, k=kind: ffn_fwd(p_, x_, ctx, k), ctx)(p, x)
             pe_u, oc_u, n = pe_u + pe, oc_u + oc, n + 1
         pen = pen + pe_u
         occ = occ + (oc_u / max(n, 1)) / cfg.n_units

@@ -60,8 +60,10 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, dtype, device):
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dt, device=device)
     if d.init in ("normal", "embed"):
+        # scaled in place: a large leaf (a stacked expert weight) needs
+        # no second float32 copy while it is drawn
         x = torch.randn(d.shape, generator=gen, dtype=f32, device=device)
-        return (x * d.scale).to(dt)
+        return x.mul_(d.scale).to(dt)
     if d.init == "theta":  # spike firing gate
         return torch.full(d.shape, 0.01, dtype=f32, device=device)
     if d.init == "logscale":

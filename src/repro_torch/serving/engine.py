@@ -237,7 +237,7 @@ class ServingEngine:
                     "ported yet")
         if cfg.is_encdec:
             raise EngineConfigError("encoder-decoder serving: not ported")
-        if any(k not in ("attn", "global", "local") for k in cfg.pattern):
+        if any(k not in M.BLOCK_KINDS for k in cfg.pattern):
             raise EngineConfigError(
                 f"pattern {cfg.pattern}: only attention families are ported")
         if ecfg.page_size < 1:

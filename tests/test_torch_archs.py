@@ -1,8 +1,8 @@
 """The port's architecture registry against the JAX package's.
 
 Every architecture the port registers (the dense attention family:
-``qwen1.5-0.5b``, ``qwen1.5-4b``, ``gemma2-2b``, ``granite-20b``)
-equals the JAX registry's config field for field, at full size and
+``qwen1.5-0.5b``, ``qwen1.5-4b``, ``gemma2-2b``, ``granite-20b``; the
+MoE family: ``qwen2-moe-a2.7b``, ``llama4-maverick-400b-a17b``) equals the JAX registry's config field for field, at full size and
 reduced (the dtype by name: a torch dtype here, a jnp one there); an
 architecture whose family is not ported raises ``KeyError``.
 """
@@ -18,7 +18,8 @@ from repro.configs.reduced import reduced as jax_reduced  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.configs.reduced import reduced  # noqa: E402
 
-ARCHS = ("gemma2-2b", "granite-20b", "qwen1.5-0.5b", "qwen1.5-4b")
+ARCHS = ("gemma2-2b", "granite-20b", "llama4-maverick-400b-a17b",
+         "qwen1.5-0.5b", "qwen1.5-4b", "qwen2-moe-a2.7b")
 
 
 def _fields(cfg):

@@ -61,10 +61,10 @@ B, S = CELL.global_batch, CELL.seq_len
 class Steps:
     """Both sides' steps at one codec, built (and compiled) once."""
 
-    def __init__(self, hnn, codec):
-        self.jcfg = jax_reduced(jax_get_config(ARCH, hnn_mode=hnn)).replace(
+    def __init__(self, hnn, codec, arch=ARCH):
+        self.jcfg = jax_reduced(jax_get_config(arch, hnn_mode=hnn)).replace(
             codec=codec, dtype=jnp.float32)
-        self.tcfg = reduced(get_config(ARCH, hnn_mode=hnn)).replace(
+        self.tcfg = reduced(get_config(arch, hnn_mode=hnn)).replace(
             codec=codec, dtype=torch.float32)
         mesh = make_mesh((1, 1), ("data", "model"))
         plan = SP.make_plan(self.jcfg, ShapeCell("d", S, B, "decode"), mesh)
@@ -84,11 +84,11 @@ class Steps:
 _STEPS = {}
 
 
-def steps(codec) -> Steps:
-    if codec not in _STEPS:
+def steps(codec, arch=ARCH) -> Steps:
+    if (codec, arch) not in _STEPS:
         hnn = {c: h for h, c in CODECS}[codec]
-        _STEPS[codec] = Steps(hnn, codec)
-    return _STEPS[codec]
+        _STEPS[codec, arch] = Steps(hnn, codec, arch)
+    return _STEPS[codec, arch]
 
 
 def _tokens(seed):
@@ -147,10 +147,11 @@ def test_quickstart_sequence_matches_reference(codec):
     check_quickstart_sequence(codec)
 
 
-def check_quickstart_sequence(codec):
+def check_quickstart_sequence(codec, arch=ARCH):
     """Prefill, then four steps at pos = S - 1 + t: the first rewrites
     the last prompt row, the others lie past the cache."""
-    _decode_walk(steps(codec), _tokens(1), [S - 1 + t for t in range(4)])
+    _decode_walk(steps(codec, arch), _tokens(1),
+                 [S - 1 + t for t in range(4)])
 
 
 @pytest.mark.parametrize("codec", HERE)
@@ -190,8 +191,8 @@ def test_logits_step_matches_reference(codec):
     check_logits_step(codec)
 
 
-def check_logits_step(codec):
-    st = steps(codec)
+def check_logits_step(codec, arch=ARCH):
+    st = steps(codec, arch)
     tok = _tokens(4)
     jl = np.asarray(st.jlog(st.params, {"tokens": jnp.array(tok),
                                         "labels": jnp.array(tok)}))

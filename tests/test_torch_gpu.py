@@ -1061,3 +1061,114 @@ def test_train_step_on_card_matches_cpu(codec, monkeypatch):
     norm = float(TT.global_grad_norm(gp))
     for a, b in zip(tree_leaves(gc), tree_leaves(gp)):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * norm
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: its attention and boundary shapes, the MoE block
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("qwen2-moe-a2.7b", "llama4-maverick-400b-a17b")
+
+
+@pytest.mark.parametrize("K1", [1, 4])
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_paged_decode_moe_arch_shapes_on_card(arch, pool_dtype, K1):
+    """qwen2-moe's 16 MHA heads of 128 and llama4's 40 heads on 8 kv
+    heads of 128 (20 query rows a kv head at K1 = 4): the checks of
+    ``test_paged_decode_served_arch_shapes_on_card``."""
+    test_paged_decode_served_arch_shapes_on_card(arch, pool_dtype, K1)
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_launch_plan_takes_every_moe_shape(arch, pool_dtype):
+    test_launch_plan_takes_every_served_shape(arch, pool_dtype)
+
+
+@pytest.mark.parametrize("name", ("moe_m256_c2048", "moe_m256_c5120"))
+def test_lif_encode_moe_prefill_rows_match_plain_on_card(name):
+    """``lif_encode`` at the MoE widths' prefill rows, in both compute
+    types (their decode rows are among ``LIF_CASES``)."""
+    test_lif_encode_matches_plain_on_card(name)
+    test_lif_encode_bf16_mode_matches_plain_on_card(name)
+
+
+def _moe_block(arch, dtype, seed=0):
+    """Reduced ``arch``'s MoE block parameters (seeded, on the card) and
+    its config."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models import blocks_moe as MOE
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config(arch)).replace(dtype=getattr(torch, dtype))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = init_params(MOE.moe_defs(cfg), gen, cfg.dtype, device="cuda")
+    p["ln2"].normal_(0.0, 0.1, generator=gen)
+    p["wr"].mul_(15.0)           # decisive routing: std 0.3
+    return cfg, p
+
+
+@pytest.mark.parametrize("mode,B,S", [("prefill", 1, 64), ("decode", 4, 1),
+                                      ("decode", 4, 4), ("train", 2, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_block_same_bits_twice_on_card(arch, dtype, mode, B, S):
+    """The MoE block on the card: the same bits on a second call (the
+    combine sums each token's k outputs in a fixed order, no atomics),
+    its routing equal to the CPU's on the same input, and its output
+    within 1e-4 of the CPU's (f32)."""
+    _require_cuda()
+    from repro_torch.models import blocks_moe as MOE
+    from repro_torch.models.context import make_context
+    cfg, p = _moe_block(arch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(B, S, cfg.d_model, generator=gen,
+                    device="cuda").to(cfg.dtype)
+    ctx = make_context(cfg, mode)
+    with torch.no_grad():
+        a, _, _ = MOE.moe_fwd(p, x, ctx)
+        b, _, _ = MOE.moe_fwd(p, x, ctx)
+        assert torch.equal(a, b)
+        if dtype == "float32":
+            cpu = _to_cpu(p)
+            c, _, _ = MOE.moe_fwd(cpu, x.cpu(), ctx)
+            h = MOE.common.norm(x, p["ln2"], cfg.norm)
+            hc = MOE.common.norm(x.cpu(), cpu["ln2"], cfg.norm)
+            d = MOE.moe_dims(cfg)
+            _, idx, _ = MOE._route(cfg, d, h, p["wr"])
+            _, idxc, _ = MOE._route(cfg, d, hc, cpu["wr"])
+            assert torch.equal(idx.cpu(), idxc)
+            torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+def test_moe_engine_on_card_launches_and_drains():
+    """Reduced llama4 (f32, ``spike``) served by the engine on the card:
+    paged decode once per layer and step, ``lif_encode`` at the two
+    coded boundaries of each dense layer's attention and MLP and the
+    attention's two of each MoE layer (none in the MoE block at tp = 1),
+    decode steps and prefills; every page free at the end."""
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = reduced(get_config("llama4-maverick-400b-a17b",
+                             codec="spike")).replace(dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+    eng = ServingEngine(cfg, params, EngineConfig(num_slots=4, max_seq=64,
+                                                  page_size=16))
+    rng = np.random.RandomState(0)
+    ops.reset_launch_counts()
+    out = eng.run([Request(rid=i, prompt=rng.randint(0, 256, 9 + i).tolist(),
+                           max_new_tokens=6) for i in range(6)])
+    n = ops.launch_counts()
+    dense = cfg.pattern.count("attn") * cfg.n_units
+    moe = cfg.pattern.count("attn_moe") * cfg.n_units
+    steps, pre = eng.decode_steps, eng.prefills
+    assert n["paged_decode"] == cfg.n_layers * steps
+    assert n["lif_encode"] == (4 * dense + 2 * moe) * (steps + pre)
+    assert all(len(v) == 6 for v in out.values())
+    assert eng.cache.allocator.pages_in_use == 0

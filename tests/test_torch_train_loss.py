@@ -73,11 +73,11 @@ NOISE_FACTOR = 4
 MESH = make_mesh((1, 1), ("data", "model"))
 
 
-def configs(hnn, codec):
+def configs(hnn, codec, arch=ARCH):
     """(JAX config, port config, plan) of the reduced model in f32."""
-    jcfg = jax_reduced(jax_get_config(ARCH, hnn_mode=hnn)).replace(
+    jcfg = jax_reduced(jax_get_config(arch, hnn_mode=hnn)).replace(
         codec=codec, dtype=jnp.float32)
-    tcfg = reduced(get_config(ARCH, hnn_mode=hnn)).replace(
+    tcfg = reduced(get_config(arch, hnn_mode=hnn)).replace(
         codec=codec, dtype=torch.float32)
     return jcfg, tcfg, SP.make_plan(jcfg, smoke_shape("train"), MESH)
 
@@ -129,8 +129,11 @@ def assert_trees_close(got, want, tol=TOL, what=""):
                                    err_msg=f"{what}{k}")
 
 
-def check_forward_loss(hnn, codec):
-    jcfg, tcfg, plan = configs(hnn, codec)
+def check_forward_loss(hnn, codec, arch=ARCH):
+    """``forward_loss`` and every leaf's gradient of the reduced ``arch``,
+    port vs JAX.  Returns (JAX loss, JAX metrics, JAX gradients by
+    path)."""
+    jcfg, tcfg, plan = configs(hnn, codec, arch)
     params = jax_params(jcfg, plan)
     _, pspecs, _ = TR.shard_params_specs(jcfg, plan)
     _, bspecs = SP.train_input_specs(plan)
@@ -175,7 +178,7 @@ def check_forward_loss(hnn, codec):
         assert float(jm["penalty"]) > 0
         sp = [k for k in want if "sp_in" in k]
         assert sp and all(np.abs(want[k]).sum() > 0 for k in sp)
-    return float(jloss), {k: float(v) for k, v in jm.items()}
+    return float(jloss), {k: float(v) for k, v in jm.items()}, want
 
 
 def perturbed(tparams, seed=1):
