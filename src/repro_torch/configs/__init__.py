@@ -2,9 +2,10 @@
 
 Only the architectures the port can run are registered: the dense
 attention family (``qwen1.5-0.5b``, ``qwen1.5-4b``, ``gemma2-2b``,
-``granite-20b``) and the MoE family (``qwen2-moe-a2.7b``,
-``llama4-maverick-400b-a17b``); the others join with their model
-families.
+``granite-20b``), the MoE family (``qwen2-moe-a2.7b``,
+``llama4-maverick-400b-a17b``) and the recurrent-state families
+(``rwkv-paper``, ``xlstm-125m``, ``jamba-1.5-large-398b``); the others
+join with their model families.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ def register(fn):
 
 
 def _load_all():
-    from . import (gemma2_2b, granite_20b, llama4_maverick,  # noqa: F401
-                   qwen1_5_0_5b, qwen1_5_4b, qwen2_moe_a2_7b)
+    from . import (gemma2_2b, granite_20b, jamba_1_5_large,  # noqa: F401
+                   llama4_maverick, qwen1_5_0_5b, qwen1_5_4b,
+                   qwen2_moe_a2_7b, rwkv_paper, xlstm_125m)
 
 
 def get_config(name: str, **overrides) -> ModelConfig:

@@ -113,6 +113,11 @@ CASES = {
                            P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
     "llama4_gqa_k1_4": (dict(seed=18, B=4, K1=4, Hq=40, Hkv=8, dh=128,
                              P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
+    # jamba-1.5-large's attention layer: 64 heads on 8 kv heads of 128
+    # (8 query rows a kv head), served in bfloat16; K1 = 1 only, since
+    # a recurrent family serves with spec_k = 0
+    "jamba_gqa_k1": (dict(seed=19, B=4, K1=1, Hq=64, Hkv=8, dh=128,
+                          P_loc=64, psz=16, ppc=16), 0, 0.0, ()),
 }
 
 
@@ -120,11 +125,14 @@ CASES = {
 #: and verify shapes)
 ARCH_CASES = ("gemma2_local_k1", "gemma2_local_k1_4", "granite_mqa_k1",
               "granite_mqa_k1_4", "qwen4b_mha_k1_4", "qwen2moe_mha_k1",
-              "qwen2moe_mha_k1_4", "llama4_gqa_k1", "llama4_gqa_k1_4")
+              "qwen2moe_mha_k1_4", "llama4_gqa_k1", "llama4_gqa_k1_4",
+              "jamba_gqa_k1")
 #: each MoE case's pool dtype on its served path (the card's checks run
 #: every case in both)
 MOE_CASE_POOL = {"qwen2moe_mha_k1": "float32", "qwen2moe_mha_k1_4": "float32",
                  "llama4_gqa_k1": "bfloat16", "llama4_gqa_k1_4": "bfloat16"}
+#: the pool dtype of every case served in another dtype than float32
+CASE_POOL = {**MOE_CASE_POOL, "jamba_gqa_k1": "bfloat16"}
 
 
 def case_arrays(name):
@@ -150,7 +158,13 @@ def to_tensors(arrays, device, pool_dtype=torch.float32):
 # ---------------------------------------------------------------------------
 
 LIF_CASES = ("random_t15", "random_t7", "random_bf16", "half_ticks_t15",
-             "half_ticks_t7", "edges", "moe_m4_c2048", "moe_m4_c5120")
+             "half_ticks_t7", "edges", "moe_m4_c2048", "moe_m4_c5120",
+             "rec_m4_c512", "rec_m4_c768", "rec_m4_c8192")
+#: the recurrent families' boundary widths at four decode rows:
+#: rwkv-paper's d_model 512, xlstm-125m's 768, jamba-1.5-large's 8192
+#: (``rec_m4_c*`` of ``LIF_CASES`` and, packed, of ``PACK4_CASES``;
+#: random activations at T = 15)
+REC_WIDTHS = (512, 768, 8192)
 #: the MoE family's boundary widths (qwen2-moe-a2.7b's d_model 2048,
 #: llama4-maverick's 5120) at a prefill's 256 rows (their decode rows,
 #: four slots, are ``moe_m4_c*`` of ``LIF_CASES``): random activations
@@ -204,7 +218,7 @@ def lif_case(name):
             x = torch.tensor(x).to(torch.bfloat16).float().numpy()
             return x, theta, scale, T, "bfloat16"
         return x, theta, scale, T, "float32"
-    if name.startswith(("tail_", "moe_")):
+    if name.startswith(("tail_", "moe_", "rec_")):
         M, C = (int(v) for v in name.split("_m", 1)[1].split("_c"))
         rng = np.random.RandomState(M * 10007 + C)
         x = (rng.standard_normal((M, C)) * 1.5).astype(np.float32)
@@ -234,7 +248,9 @@ def lif_tensors(name, device):
 # ---------------------------------------------------------------------------
 
 PACK4_CASES = ("all_bytes", "wire_ragged", "wire_row", "moe_m4_c1024",
-               "moe_m4_c2048", "moe_m4_c2560", "moe_m4_c5120")
+               "moe_m4_c2048", "moe_m4_c2560", "moe_m4_c5120",
+               "rec_m4_c256", "rec_m4_c384", "rec_m4_c4096", "rec_m4_c512",
+               "rec_m4_c768", "rec_m4_c8192")
 #: the vector layout's edges for the packs (16 bytes in a thread): the
 #: even channel counts of ``TAIL_CHANNELS``
 PACK4_TAIL_CASES = tuple(f"tail_m{M}_c{C}" for M in TAIL_ROWS
@@ -248,8 +264,10 @@ def pack4_case(name):
     (``tail_m{M}_c{C}``) random bytes of any value.  ``moe_m4_c{C}``: a
     random 4-bit wire of four decode rows; packed, the MoE family's
     widths 2048 and 5120 (C), and as packed bytes, unpacked to them
-    (C = 1024, 2560)."""
-    if name.startswith("moe_"):
+    (C = 1024, 2560); ``rec_m4_c{C}`` likewise at the recurrent
+    families' widths 512, 768 and 8192 (packed bytes: C = 256, 384,
+    4096)."""
+    if name.startswith(("moe_", "rec_")):
         M, C = (int(v) for v in name[len("moe_m"):].split("_c"))
         return np.random.RandomState(M * 131 + C).randint(
             0, 15, (M, C)).astype(np.uint8)

@@ -34,7 +34,9 @@ def make_prefill_step(cfg, device=None):
     """prefill(params, batch) -> (last_logits [B, V] f32, cache).
 
     ``batch["tokens"]`` [B, S] int; the cache is ``{"posI": {"kv": {"k",
-    "v"}}}`` with leaves [U, B, S, Hkv, dh], the dense per-slot layout
+    "v"}}}`` with leaves [U, B, S, Hkv, dh] at attention positions and
+    the recurrent state (``ssm_state`` / ``rnn_state`` / ``rwkv_state``
+    leaves [U, B, ...]) at the others: the dense per-slot layout
     ``make_decode_step`` takes."""
     dev = resolve_device(device)
     ctx = make_context(cfg, "prefill")
@@ -53,7 +55,8 @@ def make_decode_step(cfg, device=None):
     token [B] int; pos an int, a 0-d tensor or [B] per-slot positions;
     cache the dense per-slot cache of ``make_prefill_step``.  Slot b
     writes its new K/V row at ``pos[b]`` only when that lies inside the
-    cache, and attends to every entry at or before it.  The reference
+    cache, and attends to every entry at or before it; a recurrent
+    block steps slot b's state.  The reference
     donates the cache to its step; here it is updated in place and
     returned.  The reference's ``replicate_weights`` knob has no
     counterpart: at world size 1 there are no data axes to replicate the

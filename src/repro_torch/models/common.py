@@ -28,10 +28,20 @@ def rms_norm(x, scale, eps=1e-6):
     return (h * (1.0 + scale.to(F32))).to(x.dtype)
 
 
+def layer_norm(x, scale, bias=None, eps=1e-5):
+    h = x.to(F32)
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    # jnp.var is the population variance: no Bessel correction
+    var = torch.var(h, dim=-1, keepdim=True, correction=0)
+    h = (h - mu) * torch.rsqrt(var + eps)
+    h = h * (1.0 + scale.to(F32))
+    if bias is not None:
+        h = h + bias.to(F32)
+    return h.to(x.dtype)
+
+
 def norm(x, scale, kind="rmsnorm"):
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm={kind!r}: not ported yet")
-    return rms_norm(x, scale)
+    return rms_norm(x, scale) if kind == "rmsnorm" else layer_norm(x, scale)
 
 
 def act_fn(x, kind="silu"):

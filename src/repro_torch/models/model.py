@@ -1,20 +1,35 @@
 """Full model: embedding -> layer units -> LM head, at tp = 1.
 
-The port of ``repro.models.model`` for the attention families: the
-dense blocks (``attn``, ``global``, ``local``: attention, then a dense
-MLP) and ``attn_moe`` (attention, then the MoE FFN of ``blocks_moe``).
-Parameters are a nested dict of tensors with the reference's structure:
-per-unit leaves carry a leading unit dim and the forward passes loop
-over units (the reference scans them).
+The port of ``repro.models.model``.  A block is a mixer, then an
+optional FFN:
+
+  attn / global / local : attention (``blocks_attn``), then a dense MLP
+  attn_moe              : attention, then the MoE FFN (``blocks_moe``)
+  mamba / mamba_mlp / mamba_moe : the selective SSM (``blocks_ssm``),
+                          then nothing / the dense MLP / the MoE FFN
+  mlstm / slstm / rwkv  : the recurrent blocks of ``blocks_rnn``, each
+                          self-contained
+
+Attention blocks keep K/V (``{"kv": {"k", "v"}}``); the others keep a
+recurrent state of O(1) per slot under ``ssm_state`` / ``rnn_state`` /
+``rwkv_state``, slot-major ([U, slots, ...]) in the serving engine's
+cache as in the dense one.  Parameters are a nested dict of tensors with
+the reference's structure: per-unit leaves carry a leading unit dim and
+the forward passes loop over units (the reference scans them).
 
   forward_prefill : one right-padded prompt batch -> logits at the last
-                    (or ``last_pos``) position + the prompt's KV
+                    (or ``last_pos``) position + the prompt's KV and
+                    recurrent states (recurrent families are prefilled
+                    at the prompt's exact length: padding would fold
+                    into the state)
   forward_decode  : one token per slot over the serving engine's paged
                     KV pool, or over the dense per-slot cache that
                     forward_prefill returns -> next-token logits (cache
                     updated in place)
   forward_verify  : K1 = spec_k + 1 tokens per slot over the paged pool
-                    -> logits at every position (speculative decoding)
+                    -> logits at every position (speculative decoding;
+                    attention families only: a recurrent state cannot
+                    roll a rejected draft back)
   forward_logits  : teacher-forced logits at every position of a token
                     batch (the reference's ``make_logits_step``)
   forward_loss    : the training forward: mean next-token NLL plus the
@@ -29,30 +44,88 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
-from . import blocks_attn, blocks_moe, common
+from . import blocks_attn, blocks_moe, blocks_rnn, blocks_ssm, common
 from .context import Context
 from .params import pdef, spike_pdefs, stack_defs
 
 F32 = torch.float32
 
-#: the block kinds the port runs: attention, then a dense MLP or (for
-#: ``attn_moe``) the MoE FFN
-BLOCK_KINDS = ("attn", "global", "local", "attn_moe")
+ATTN_KINDS = ("attn", "global", "local", "attn_moe")
+MAMBA_KINDS = ("mamba", "mamba_mlp", "mamba_moe")
+
+#: kind -> (the cache key of its mixer's state, the mixer's train /
+#: prefill forward, its decode step, its parameter defs, its per-slot
+#: state leaves) for the recurrent mixers
+_RECURRENT = {
+    **{k: ("ssm_state", blocks_ssm.mamba_fwd, blocks_ssm.mamba_decode_fwd,
+           blocks_ssm.mamba_defs, blocks_ssm.mamba_state_shapes)
+       for k in MAMBA_KINDS},
+    "mlstm": ("rnn_state", blocks_rnn.mlstm_fwd, blocks_rnn.mlstm_decode_fwd,
+              blocks_rnn.mlstm_defs, blocks_rnn.mlstm_state_shapes),
+    "slstm": ("rnn_state", blocks_rnn.slstm_fwd, blocks_rnn.slstm_decode_fwd,
+              blocks_rnn.slstm_defs, blocks_rnn.slstm_state_shapes),
+    "rwkv": ("rwkv_state", blocks_rnn.rwkv_fwd, blocks_rnn.rwkv_decode_fwd,
+             blocks_rnn.rwkv_defs, blocks_rnn.rwkv_state_shapes),
+}
+
+#: the cache keys of recurrent state (the reference's
+#: ``_RECURRENT_CACHE_KEYS``)
+STATE_KEYS = ("ssm_state", "rnn_state", "rwkv_state")
+
+#: every block kind of the reference but the encoder-decoder's
+BLOCK_KINDS = ATTN_KINDS + tuple(_RECURRENT)
+
+#: kind -> its FFN after the mixer: the dense MLP, the MoE FFN or none
+_FFN = {"attn": "mlp", "global": "mlp", "local": "mlp", "attn_moe": "moe",
+        "mamba_mlp": "mlp", "mamba_moe": "moe"}
 
 
 def _block_defs(cfg, kind):
     if kind not in BLOCK_KINDS:
         raise NotImplementedError(f"block kind {kind!r}: not ported yet")
-    if kind == "attn_moe":
-        return {**blocks_attn.attn_defs(cfg), **blocks_moe.moe_defs(cfg)}
-    return {**blocks_attn.attn_defs(cfg), **blocks_attn.mlp_defs(cfg)}
+    defs = (blocks_attn.attn_defs(cfg) if kind in ATTN_KINDS
+            else _RECURRENT[kind][3](cfg))
+    ffn = _FFN.get(kind)
+    if ffn == "mlp":
+        defs = {**defs, **blocks_attn.mlp_defs(cfg)}
+    elif ffn == "moe":
+        defs = {**defs, **blocks_moe.moe_defs(cfg)}
+    return defs
+
+
+def is_recurrent(cfg) -> bool:
+    """True iff some block of ``cfg`` carries a recurrent state."""
+    return any(k in _RECURRENT for k in cfg.pattern)
+
+
+def state_shapes(cfg, kind):
+    """``(cache key, {leaf: (per-slot shape, dtype)})`` of a recurrent
+    block kind's state, or None for an attention kind."""
+    if kind not in _RECURRENT:
+        return None
+    return _RECURRENT[kind][0], _RECURRENT[kind][4](cfg)
 
 
 def ffn_fwd(p, x, ctx: Context, kind):
-    """The FFN after a block's attention: x -> (x', penalty, occupancy)."""
-    if kind == "attn_moe":
+    """The FFN after a block's mixer: x -> (x', penalty, occupancy); the
+    identity (with no statistics) for a self-contained block."""
+    ffn = _FFN.get(kind)
+    if ffn == "moe":
         return blocks_moe.moe_fwd(p, x, ctx)
-    return blocks_attn.mlp_fwd(p, x, ctx)
+    if ffn == "mlp":
+        return blocks_attn.mlp_fwd(p, x, ctx)
+    return x, None, None
+
+
+def mixer_fwd(p, x, ctx: Context, aux, kind):
+    """A block's mixer in train / prefill mode: x -> (x', (cache key,
+    cache) in prefill mode else None, penalty, occupancy)."""
+    if kind in ATTN_KINDS:
+        x, kv, pe, oc = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
+        return x, ("kv", kv), pe, oc
+    key, fwd = _RECURRENT[kind][:2]
+    x, st, pe, oc = fwd(p, x, ctx)
+    return x, (key, st), pe, oc
 
 
 def model_defs(cfg: ModelConfig, tp: int = 1):
@@ -106,8 +179,10 @@ def forward_prefill(params, tokens, ctx: Context, last_pos=None):
 
     ``last_pos`` (optional [B] int tensor): per-sequence index of the
     last real prompt token; defaults to the final position.  Returns
-    (logits [B, V] f32, caches ``{"posI": {"kv": {"k", "v"}}}`` with
-    leaves [U, B, S, Hkv, dh]).
+    (logits [B, V] f32, caches): ``{"posI": {"kv": {"k", "v"}}}`` with
+    leaves [U, B, S, Hkv, dh] at attention positions, and the state
+    leaves [U, B, ...] under ``ssm_state`` / ``rnn_state`` /
+    ``rwkv_state`` at recurrent ones.
     """
     cfg = ctx.cfg
     ctx = ctx.with_(mode="prefill")
@@ -121,15 +196,16 @@ def forward_prefill(params, tokens, ctx: Context, last_pos=None):
         caches = {}
         for i, kind in enumerate(cfg.pattern):
             p = unit_p[f"pos{i}"]
-            x, kv, _, _ = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
+            x, (key, c), _, _ = mixer_fwd(p, x, ctx, aux, kind)
             x, _, _ = ffn_fwd(p, x, ctx, kind)
-            caches[f"pos{i}"] = {"kv": kv}
+            caches[f"pos{i}"] = {key: c}
         per_unit.append(caches)
-    caches = {
-        f"pos{i}": {"kv": {n: torch.stack([c[f"pos{i}"]["kv"][n]
-                                           for c in per_unit])
-                           for n in ("k", "v")}}
-        for i in range(len(cfg.pattern))}
+    caches = {}
+    for i in range(len(cfg.pattern)):
+        (key, first), = per_unit[0][f"pos{i}"].items()
+        caches[f"pos{i}"] = {key: {
+            n: torch.stack([c[f"pos{i}"][key][n] for c in per_unit])
+            for n in first}}
     last = common.norm(x, params["final_ln"], cfg.norm)
     if last_pos is not None:
         lidx = last_pos.long().reshape(-1).expand(B) % S
@@ -158,32 +234,43 @@ def forward_logits(params, tokens, ctx: Context):
         unit_p = unit_slice(params["units"], u)
         for i, kind in enumerate(cfg.pattern):
             p = unit_p[f"pos{i}"]
-            x, _, _, _ = blocks_attn.attn_fwd(p, x, ctx, aux, kind=kind)
+            x, _, _, _ = mixer_fwd(p, x, ctx, aux, kind)
             x, _, _ = ffn_fwd(p, x, ctx, kind)
     return lm_logits_local(params, x, ctx)
 
 
 def _forward_steps(params, cache, tokens, qpos, ctx: Context, aux_extra):
     """K1 tokens per slot: tokens [B, K1] int at absolute positions qpos
-    [B, K1] -> logits [B, K1, V] f32.  Over the paged KV pool when
-    ``aux_extra`` carries a ``"block_table"``, else over the dense
-    per-slot cache (K1 = 1).  The new K/V rows are written in place."""
+    [B, K1] -> logits [B, K1, V] f32.  Attention runs over the paged KV
+    pool when ``aux_extra`` carries a ``"block_table"``, else over the
+    dense per-slot cache (K1 = 1); the new K/V rows are written in
+    place.  A recurrent block (K1 = 1) steps its slot-major state, which
+    is overwritten in place with the new state."""
     cfg = ctx.cfg
     ctx = ctx.with_(mode="decode")
     aux = dict(aux_extra or {})
     x = embed_tokens(params, tokens).to(cfg.dtype)
-    if aux.get("block_table") is not None:
-        kv0 = cache["pos0"]["kv"]["k"]
+    attn_pos = [i for i, k in enumerate(cfg.pattern) if k in ATTN_KINDS]
+    if aux.get("block_table") is not None and attn_pos:
+        kv0 = cache[f"pos{attn_pos[0]}"]["kv"]["k"]
         aux["kv_write"] = blocks_attn.paged_write_targets(
             aux["block_table"], qpos, kv0.shape[1] - 1, kv0.shape[2])
     for u in range(cfg.n_units):
         unit_p = unit_slice(params["units"], u)
         for i, kind in enumerate(cfg.pattern):
-            kv = cache[f"pos{i}"]["kv"]
-            kv_u = {"k": kv["k"][u], "v": kv["v"][u]}
-            x, _ = blocks_attn.attn_verify_fwd(unit_p[f"pos{i}"], x, kv_u,
-                                               qpos, ctx, aux, kind=kind)
-            x, _, _ = ffn_fwd(unit_p[f"pos{i}"], x, ctx, kind)
+            p = unit_p[f"pos{i}"]
+            if kind in ATTN_KINDS:
+                kv = cache[f"pos{i}"]["kv"]
+                kv_u = {"k": kv["k"][u], "v": kv["v"][u]}
+                x, _ = blocks_attn.attn_verify_fwd(p, x, kv_u, qpos, ctx,
+                                                   aux, kind=kind)
+            else:
+                key, _, step = _RECURRENT[kind][:3]
+                st = cache[f"pos{i}"][key]
+                x, new = step(p, x, {n: v[u] for n, v in st.items()}, ctx)
+                for n, v in st.items():
+                    v[u].copy_(new[n])
+            x, _, _ = ffn_fwd(p, x, ctx, kind)
     h = common.norm(x, params["final_ln"], cfg.norm)
     logits = (h @ _head_w(params, cfg)).to(F32)
     if cfg.final_softcap:
@@ -236,6 +323,11 @@ def forward_verify(params, cache, tokens, pos, ctx: Context, aux_extra=None,
         raise NotImplementedError(
             "forward_verify(return_hidden=True): the learned draft heads "
             "are not ported yet")
+    if is_recurrent(ctx.cfg):
+        raise NotImplementedError(
+            f"verify step over the recurrent blocks of {ctx.cfg.pattern}: "
+            "their state cannot roll back rejected drafts (the engine "
+            "falls back to spec_k=0)")
     B, K1 = tokens.shape
     pos = pos.reshape(-1).expand(B)
     qpos = pos[:, None] + torch.arange(K1, dtype=pos.dtype,
@@ -273,12 +365,13 @@ def _run_stack(params, x, ctx: Context, aux):
         for i, kind in enumerate(cfg.pattern):
             p = unit_p[f"pos{i}"]
             x, _, pe, oc = _ckpt(
-                lambda p_, x_, k=kind: blocks_attn.attn_fwd(
-                    p_, x_, ctx, aux, kind=k), ctx)(p, x)
+                lambda p_, x_, k=kind: mixer_fwd(p_, x_, ctx, aux, k), ctx)(
+                    p, x)
             pe_u, oc_u, n = pe_u + pe, oc_u + oc, n + 1
-            x, pe, oc = _ckpt(
-                lambda p_, x_, k=kind: ffn_fwd(p_, x_, ctx, k), ctx)(p, x)
-            pe_u, oc_u, n = pe_u + pe, oc_u + oc, n + 1
+            if kind in _FFN:
+                x, pe, oc = _ckpt(
+                    lambda p_, x_, k=kind: ffn_fwd(p_, x_, ctx, k), ctx)(p, x)
+                pe_u, oc_u, n = pe_u + pe, oc_u + oc, n + 1
         pen = pen + pe_u
         occ = occ + (oc_u / max(n, 1)) / cfg.n_units
     return x, pen, occ

@@ -24,7 +24,7 @@ class ParamDef:
     shape: tuple
     tp_dim: Optional[int] = None
     fsdp_dim: Optional[int] = None
-    init: str = "normal"      # normal|zeros|ones|theta|logscale|embed
+    init: str = "normal"      # normal|zeros|ones|alog|theta|logscale|embed|dtbias|half
     scale: float = 0.02
     dtype: Any = None         # None -> cfg dtype
 
@@ -64,12 +64,19 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, dtype, device):
         # no second float32 copy while it is drawn
         x = torch.randn(d.shape, generator=gen, dtype=f32, device=device)
         return x.mul_(d.scale).to(dt)
+    if d.init == "alog":   # mamba A_log: log(1..N) per state row
+        n = d.shape[-1]
+        a = torch.arange(1, n + 1, dtype=f32, device=device)
+        return torch.log(a).expand(d.shape).to(dt).clone()
     if d.init == "theta":  # spike firing gate
         return torch.full(d.shape, 0.01, dtype=f32, device=device)
     if d.init == "logscale":
         return torch.zeros(d.shape, dtype=f32, device=device)
-    raise NotImplementedError(f"init {d.init!r}: not ported yet (its "
-                              "families are not)")
+    if d.init == "dtbias":  # mamba dt bias: softplus^-1 of ~0.01..0.1
+        return torch.full(d.shape, -4.6, dtype=f32, device=device)
+    if d.init == "half":
+        return torch.full(d.shape, 0.5, dtype=f32, device=device)
+    raise ValueError(d.init)
 
 
 def init_params(defs, gen: torch.Generator, dtype=torch.bfloat16, *,

@@ -6,8 +6,12 @@ engine owns a fixed pool of request slots (the decode batch) and a
 
   prefill : B=1, right-padded prompt of ``prefill_len`` tokens -> the
             first token (sampled from the logits at the true last prompt
-            position) + the prompt's KV
-  insert  : splice that KV into the pages mapped for a free slot
+            position) + the prompt's KV; a recurrent family (mamba,
+            xLSTM, RWKV blocks) prefills at the prompt's exact length,
+            since padding would fold into its state, and returns its
+            state too
+  insert  : splice that KV into the pages mapped for a free slot, and
+            the state into the slot's rows of the slot-major state
   decode  : ONE step for ALL slots — per-slot positions, block table and
             compacted page lists — whose attention runs the paged-decode
             kernel (``attn_kernel="fused"``) or gathers the full block
@@ -19,7 +23,10 @@ engine owns a fixed pool of request slots (the decode batch) and a
             accepts the longest draft prefix the sampled tokens confirm
             plus the correction token, and rolls the rejected tail's
             pages back.  Greedy spec decoding commits the ``spec_k=0``
-            tokens; only the number of forwards changes.
+            tokens; only the number of forwards changes.  A recurrent
+            state cannot roll a rejected draft back, so those families
+            serve with ``spec_k=0`` whatever ``EngineConfig.spec_k``
+            says, as in the reference.
 
 The engine is a dispatch/commit pipeline (``EngineConfig.async_depth``).
 ``dispatch()`` admits what fits and LAUNCHES one batched step without
@@ -239,7 +246,9 @@ class ServingEngine:
             raise EngineConfigError("encoder-decoder serving: not ported")
         if any(k not in M.BLOCK_KINDS for k in cfg.pattern):
             raise EngineConfigError(
-                f"pattern {cfg.pattern}: only attention families are ported")
+                f"pattern {cfg.pattern}: block kinds "
+                f"{sorted(set(cfg.pattern) - set(M.BLOCK_KINDS))} are not "
+                "ported")
         if ecfg.page_size < 1:
             raise EngineConfigError(f"page_size={ecfg.page_size} must be "
                                     ">= 1")
@@ -266,7 +275,6 @@ class ServingEngine:
             raise ValueError(f"params lie on {leaf.device}, the engine runs "
                              f"on {self.device}")
         self.cfg, self.params, self.ecfg = cfg, params, ecfg
-        self.spec_k = ecfg.spec_k
         self.async_depth = ecfg.async_depth
         self.ctx = make_context(cfg)
         self._scfg = sampling.SamplingConfig(top_k=ecfg.top_k,
@@ -281,6 +289,15 @@ class ServingEngine:
                                   page_size=ecfg.page_size,
                                   num_pages=self.num_pages,
                                   device=self.device)
+        self._has_state = any(k in M.STATE_KEYS
+                              for pos in self.cache.buffers.values()
+                              for k in pos)
+        # a recurrent state folds every token in and cannot roll back a
+        # rejected draft: those families serve vanilla (spec_k=0)
+        self.spec_k = 0 if self._has_state else ecfg.spec_k
+        #: the sequence-sharding granularity of an exact-length prefill
+        #: (the reference's tp_size; 1 at world size 1)
+        self.tp_size = 1
         n = ecfg.num_slots
         self._tokens = np.zeros(n, np.int32)       # host token shadow
         self._pos = np.zeros(n, np.int32)          # dispatch-side positions
@@ -319,6 +336,11 @@ class ServingEngine:
         if not 0 < P_len <= self.prefill_len:
             raise ValueError(
                 f"prompt len {P_len} not in (0, {self.prefill_len}]")
+        if self._has_state and P_len % self.tp_size != 0:
+            raise ValueError(
+                "recurrent-state families prefill exact-length buckets: "
+                f"prompt len {P_len} must be a multiple of tp_size "
+                f"({self.tp_size})")
         alloc = self.cache.allocator
         if alloc.pages_needed(P_len) > alloc.pages_per_group:
             raise ValueError(
@@ -369,7 +391,11 @@ class ServingEngine:
         its value copies to the host for the slot's first commit."""
         req, prior, prior_margins, prompt = self._entry_parts(entry)
         P_len = len(prompt)
-        toks = np.zeros((1, self.prefill_len), np.int32)
+        # a recurrent family folds every position into its state, so it
+        # prefills the prompt at its exact length (nothing compiles per
+        # length here: no bucket cache); attention families right-pad
+        toks = np.zeros((1, P_len if self._has_state else self.prefill_len),
+                        np.int32)
         toks[0, :P_len] = np.asarray(prompt, np.int32)
         logits, pre_cache = M.forward_prefill(
             self.params, self._stage(toks), self.ctx,

@@ -1,19 +1,26 @@
-"""Pooled KV page cache for the serving engine.
+"""Pooled KV page cache + slot-major state cache for the serving engine.
 
 The port of ``repro.serving.kv_cache``.  Attention KV lives in one
-shared page pool ``[U, num_pages, page_size, Hkv, dh]`` per pattern
-position, and each request slot maps an ordered list of pages through a
-per-slot block-table row of global page ids (-1 = unmapped), so a
-slot's device footprint is ``ceil(len / page_size)`` pages, not a dense
-``max_seq`` reservation.
+shared page pool ``[U, num_pages, page_size, Hkv, dh]`` per attention
+pattern position, and each request slot maps an ordered list of pages
+through a per-slot block-table row of global page ids (-1 = unmapped),
+so a slot's device footprint is ``ceil(len / page_size)`` pages, not a
+dense ``max_seq`` reservation.  Recurrent state (mamba / xLSTM / RWKV)
+stays slot-major, ``[U, num_slots, ...]``: it is O(1) per slot and every
+step reads all of it, so paging buys it nothing.  An admission
+overwrites its slot's state rows; an evicted slot's rows wait for the
+next admission.  A family without attention (``rwkv-paper``,
+``xlstm-125m``) has no KV leaf at all, while the allocator books its
+pages and positions as for any other.
 
 ``SlotAllocator`` is the host side, ported op for op from the reference
 (host numpy): slot free list, per-group/per-shard page free lists,
 alloc-on-extend, page-exact rollback/free, deferred-free epochs, the
 compacted per-shard page lists the paged-decode kernel walks, and the
 cross-group migration primitives.  ``PagedKVCache`` is the device side
-on one card: the zeroed pool, the insert of a prefilled prompt's KV
-into its freshly mapped pages, and ensure/evict/rollback.
+on one card: the zeroed pool and state, the insert of a prefilled
+prompt's KV into its freshly mapped pages and of its state into its
+slot's rows, and ensure/evict/rollback.
 
 Safety invariant (why stale pool rows never leak between slots): a
 slot's visible positions ``[0, len)`` are always positions the slot
@@ -29,6 +36,8 @@ import numpy as np
 import torch
 
 from ..models import blocks_attn
+from ..models import model as M
+from ..models.blocks_rnn import PP_INIT
 from .errors import CacheOverflowError, PagePoolExhausted, SlotsExhausted
 from .staging import to_device
 
@@ -566,13 +575,19 @@ def default_num_pages(num_slots: int, max_seq: int, page_size: int) -> int:
 
 
 class PagedKVCache:
-    """Device page pool + host ``SlotAllocator`` on one card.
+    """Device page pool and slot-major state + host ``SlotAllocator`` on
+    one card.
 
-    ``buffers`` is ``{"posI": {"kv": {"k", "v"}}}`` with pool leaves
-    ``[U, num_pages + 1, page_size, Hkv, dh]`` in the config's dtype,
-    allocated once and updated in place by inserts and decode steps.
-    Row ``num_pages`` is the sink that a step's dropped KV writes land
-    in (``blocks_attn.paged_write_targets``); no block table maps it.
+    ``buffers`` is ``{"posI": {"kv": {"k", "v"}}}`` at attention
+    positions, with pool leaves ``[U, num_pages + 1, page_size, Hkv,
+    dh]`` in the config's dtype, and ``{"posI": {key: {leaf}}}`` at
+    recurrent ones (``key`` one of ``ssm_state``, ``rnn_state``,
+    ``rwkv_state``), with leaves ``[U, num_slots, ...]`` in the shapes
+    and dtypes of the reference's cache specs, zero but RWKV's ``pp``
+    (-1e30).  All are allocated once and updated in place by inserts
+    and decode steps.  Pool row ``num_pages`` is the sink that a step's
+    dropped KV writes land in (``blocks_attn.paged_write_targets``); no
+    block table maps it.
     """
 
     def __init__(self, cfg, *, num_slots: int, max_seq: int,
@@ -584,11 +599,40 @@ class PagedKVCache:
                                        num_pages=num_pages)
         d = blocks_attn.attn_dims(cfg)
         shape = (cfg.n_units, num_pages + 1, page_size, d["Hkv"], d["dh"])
-        self.buffers = {
-            f"pos{i}": {"kv": {n: torch.zeros(shape, dtype=cfg.dtype,
-                                              device=self.device)
-                               for n in ("k", "v")}}
-            for i in range(len(cfg.pattern))}
+        self.buffers = {}
+        for i, kind in enumerate(cfg.pattern):
+            st = M.state_shapes(cfg, kind)
+            if st is None:
+                self.buffers[f"pos{i}"] = {"kv": {
+                    n: torch.zeros(shape, dtype=cfg.dtype, device=self.device)
+                    for n in ("k", "v")}}
+                continue
+            key, leaves = st
+            self.buffers[f"pos{i}"] = {key: {
+                n: torch.full((cfg.n_units, num_slots) + shp,
+                              PP_INIT if n == "pp" else 0.0, dtype=dt,
+                              device=self.device)
+                for n, (shp, dt) in leaves.items()}}
+
+    def _leaves(self, kv: bool):
+        """(position, cache key, leaf name, tensor) of every KV (``kv``)
+        or state leaf."""
+        return [(pos, key, n, t) for pos, c in self.buffers.items()
+                for key, leaves in c.items() if (key == "kv") == kv
+                for n, t in leaves.items()]
+
+    def kv_page_bytes(self) -> int:
+        """Device bytes of ONE pool page summed over layers/units (0
+        without attention)."""
+        return sum(t.nbytes // (self.num_pages + 1)
+                   for *_, t in self._leaves(kv=True))
+
+    def state_bytes_per_slot(self) -> int:
+        """Slot-major (recurrent state) bytes per slot — unchanged by
+        paging, reported so the pool numbers are not mistaken for the
+        whole cache."""
+        return sum(t.nbytes // t.shape[1]
+                   for *_, t in self._leaves(kv=False))
 
     @property
     def block_table(self) -> np.ndarray:
@@ -607,32 +651,42 @@ class PagedKVCache:
         page."""
         return self.allocator.page_list_pos
 
-    def insert(self, pre_cache, pages: np.ndarray):
-        """Splice a B=1 prefill cache (leaves [U, 1, S_pre, Hkv, dh]) into
-        the pool pages of one block-table row ``pages`` [pages_per_slot]
-        (host int32, -1 beyond the prompt).  Only mapped pages are
-        written: an admit touches O(prompt_len) pool bytes."""
+    def insert(self, pre_cache, pages: np.ndarray, slot: int = None):
+        """Splice a B=1 prefill cache into one slot: its KV (leaves [U, 1,
+        S_pre, Hkv, dh]) into the pool pages of the block-table row
+        ``pages`` [pages_per_slot] (host int32, -1 beyond the prompt),
+        and its recurrent state (leaves [U, 1, ...]) into row ``slot``
+        of the state leaves, overwriting whatever the slot held.  Only
+        mapped pages are written: an admit touches O(prompt_len) pool
+        bytes."""
+        state = self._leaves(kv=False)
+        if state and slot is None:
+            raise ValueError("insert: a recurrent state needs its slot")
+        for pos, key, n, buf in state:
+            # a mamba prefill shorter than K-1 tokens keeps fewer conv
+            # rows; they broadcast over the slot's rows, as the
+            # reference's insert broadcasts them
+            buf[:, slot] = pre_cache[pos][key][n][:, 0].to(buf.dtype)
         psz = self.page_size
         rows = np.flatnonzero((pages >= 0) & (pages < self.num_pages))
         if rows.size == 0:
             return
         ordinals = to_device(rows, self.device, torch.long)
         dst = to_device(pages[rows], self.device, torch.long)
-        for name, pos in self.buffers.items():
-            for n in ("k", "v"):
-                pool = pos["kv"][n]
-                full = pre_cache[name]["kv"][n][:, 0]     # [U, S_pre, ..]
-                S_pre = full.shape[1]
-                gpos = (ordinals[:, None] * psz
-                        + torch.arange(psz, device=self.device))
-                src = full[:, gpos.clamp(max=S_pre - 1)]  # [U, n, psz, ..]
-                pool[:, dst] = src.to(pool.dtype)
+        for pos, _, n, pool in self._leaves(kv=True):
+            full = pre_cache[pos]["kv"][n][:, 0]         # [U, S_pre, ..]
+            S_pre = full.shape[1]
+            gpos = (ordinals[:, None] * psz
+                    + torch.arange(psz, device=self.device))
+            src = full[:, gpos.clamp(max=S_pre - 1)]     # [U, n, psz, ..]
+            pool[:, dst] = src.to(pool.dtype)
 
     def admit(self, pre_cache, seq_len: int) -> int:
         """Allocate a slot, map ``ceil(seq_len/page_size)`` pages and
-        splice the prefilled cache into them."""
+        splice the prefilled cache into them and the slot's state
+        rows."""
         slot = self.allocator.alloc(seq_len)
-        self.insert(pre_cache, self.allocator.block_table[slot])
+        self.insert(pre_cache, self.allocator.block_table[slot], slot)
         return slot
 
     def ensure(self, slot: int, new_len: int):

@@ -2,9 +2,12 @@
 
 Every architecture the port registers (the dense attention family:
 ``qwen1.5-0.5b``, ``qwen1.5-4b``, ``gemma2-2b``, ``granite-20b``; the
-MoE family: ``qwen2-moe-a2.7b``, ``llama4-maverick-400b-a17b``) equals the JAX registry's config field for field, at full size and
-reduced (the dtype by name: a torch dtype here, a jnp one there); an
-architecture whose family is not ported raises ``KeyError``.
+MoE family: ``qwen2-moe-a2.7b``, ``llama4-maverick-400b-a17b``; the
+recurrent-state families: ``rwkv-paper``, ``xlstm-125m``,
+``jamba-1.5-large-398b``) equals the JAX registry's config field for
+field, at full size and reduced (the dtype by name: a torch dtype here,
+a jnp one there); an architecture whose family is not ported (the mrope
+``qwen2-vl-2b``) raises ``KeyError``.
 """
 import dataclasses
 
@@ -18,8 +21,9 @@ from repro.configs.reduced import reduced as jax_reduced  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.configs.reduced import reduced  # noqa: E402
 
-ARCHS = ("gemma2-2b", "granite-20b", "llama4-maverick-400b-a17b",
-         "qwen1.5-0.5b", "qwen1.5-4b", "qwen2-moe-a2.7b")
+ARCHS = ("gemma2-2b", "granite-20b", "jamba-1.5-large-398b",
+         "llama4-maverick-400b-a17b", "qwen1.5-0.5b", "qwen1.5-4b",
+         "qwen2-moe-a2.7b", "rwkv-paper", "xlstm-125m")
 
 
 def _fields(cfg):
@@ -47,4 +51,4 @@ def test_reduced_config_equals_jax(arch):
 
 def test_unported_family_raises():
     with pytest.raises(KeyError):
-        get_config("jamba-1.5-large-398b")
+        get_config("qwen2-vl-2b")

@@ -97,12 +97,15 @@ def _tokens(seed):
 
 
 def _assert_caches_close(tcache, jcache):
+    """Every leaf: KV and, at recurrent positions, the state."""
     assert sorted(tcache) == sorted(jcache)
     for pos in jcache:
-        for n in ("k", "v"):
-            np.testing.assert_allclose(tcache[pos]["kv"][n].numpy(),
-                                       np.asarray(jcache[pos]["kv"][n]),
-                                       atol=TOL, rtol=TOL)
+        assert sorted(tcache[pos]) == sorted(jcache[pos])
+        for key, leaves in jcache[pos].items():
+            for n, want in leaves.items():
+                np.testing.assert_allclose(tcache[pos][key][n].numpy(),
+                                           np.asarray(want), atol=TOL,
+                                           rtol=TOL, err_msg=f"{pos}/{n}")
 
 
 def _assert_logits_close(tl, jl):
@@ -121,8 +124,11 @@ def _prefill(st, tok):
     tl, tcache = st.tpre(st.tparams, {"tokens": torch.tensor(tok)})
     assert tl.shape == (B, st.tcfg.vocab)
     _assert_logits_close(tl, jl)
-    for leaf in jax.tree.leaves(jcache):
-        assert leaf.shape[1:3] == (B, S)
+    for c in jcache.values():
+        for key, leaves in c.items():
+            for leaf in leaves.values():
+                assert leaf.shape[1:3 if key == "kv" else 2] == (
+                    (B, S) if key == "kv" else (B,))
     _assert_caches_close(tcache, jcache)
     return np.asarray(jl), jcache, tcache
 

@@ -1172,3 +1172,92 @@ def test_moe_engine_on_card_launches_and_drains():
     assert n["lif_encode"] == (4 * dense + 2 * moe) * (steps + pre)
     assert all(len(v) == 6 for v in out.values())
     assert eng.cache.allocator.pages_in_use == 0
+
+
+# ---------------------------------------------------------------------------
+# the recurrent-state families: jamba's attention shape, the boundary
+# widths 512 / 768 / 8192, and each family served on the card
+# ---------------------------------------------------------------------------
+
+REC_ARCHS = {"rwkv-paper": {}, "xlstm-125m": {},
+             "jamba-1.5-large-398b": {"n_layers": 8}}
+
+
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+def test_paged_decode_jamba_shape_on_card(pool_dtype):
+    """jamba's 64 heads on 8 kv heads of 128 at K1 = 1 (spec is forced
+    off for a recurrent family): the checks of
+    ``test_paged_decode_served_arch_shapes_on_card``, and a launch plan."""
+    test_paged_decode_served_arch_shapes_on_card("jamba-1.5-large-398b",
+                                                 pool_dtype, 1)
+    from repro_torch.kernels.paged_decode import launch_plan
+    assert launch_plan(4, 1, 64, 8, 128, 16, 16,
+                       getattr(torch, pool_dtype)) is not None
+
+
+@pytest.mark.parametrize("C", [512, 768, 8192])
+def test_boundary_kernels_at_recurrent_widths_on_card(C):
+    """``lif_encode`` (both compute types, with and without the decode
+    epilogue), ``pack4_counts`` and ``unpack4_decode`` at the recurrent
+    families' widths and four decode rows, exactly equal to their plain
+    versions (the ``rec_m4_c*`` cases of ``LIF_CASES`` and
+    ``PACK4_CASES``)."""
+    _require_cuda()
+    x, theta, scale, T = lif_tensors(f"rec_m4_c{C}", "cuda")
+    for md in (torch.float32, torch.bfloat16):
+        for ds in (None, (scale / T).float()):
+            got = ops.lif_encode(x, theta, scale, T=T, math_dtype=md,
+                                 decode_scale=ds)
+            want = lif_encode_plain(x, theta, scale, T=T, math_dtype=md,
+                                    decode_scale=ds)
+            got, want = ((got,), (want,)) if ds is None else (got, want)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    counts = torch.tensor(pack4_counts_case(f"rec_m4_c{C}", 7),
+                          device="cuda")
+    assert torch.equal(PK.pack4_counts_cuda(counts, 7),
+                       pack4_counts_plain(counts, 7))
+    packed = torch.tensor(pack4_case(f"rec_m4_c{C // 2}"), device="cuda")
+    ds = torch.exp(torch.tensor(unpack4_log_scale("seeded", C),
+                                device="cuda")) / 7
+    assert torch.equal(PK.unpack4_decode_cuda(packed, 7, ds),
+                       unpack4_decode_plain(packed, 7, ds))
+
+
+@pytest.mark.parametrize("arch", sorted(REC_ARCHS))
+def test_recurrent_engine_on_card_matches_cpu(arch):
+    """A reduced recurrent family (f32, ANN, the seeded init) served by
+    the engine on the card and on the CPU: the same greedy streams under
+    the margin rule, exact-length prefills, paged decode once per
+    attention layer and step (jamba's one), every page free at the
+    end."""
+    _require_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import init_params
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    cfg = reduced(get_config(arch, hnn_mode="ann", codec="none")).replace(
+        dtype=torch.float32, **REC_ARCHS[arch])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(model_defs(cfg), gen, cfg.dtype, device="cuda")
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, 256, L).tolist(), 6) for L in (4, 10, 16, 10)]
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+        eng = ServingEngine(cfg, p, EngineConfig(num_slots=3, max_seq=64,
+                                                 page_size=16, spec_k=3),
+                            device=dev)
+        ops.reset_launch_counts()
+        out[dev] = (eng.run([Request(rid=i, prompt=q, max_new_tokens=m)
+                             for i, (q, m) in enumerate(reqs)]),
+                    eng.margins, ops.launch_counts(), eng)
+        assert eng.spec_k == 0 and eng.cache.allocator.pages_in_use == 0
+    streams, margins, n, eng = out["cpu"]
+    got, _, n_card, eng_card = out["cuda"]
+    attn = cfg.pattern.count("attn") * cfg.n_units
+    assert n_card["paged_decode"] == attn * eng_card.decode_steps
+    for rid, toks in streams.items():
+        for t, (a, b) in enumerate(zip(toks, got[rid])):
+            if margins[rid][t] <= MARGIN:
+                break
+            assert a == b, (rid, t)

@@ -73,12 +73,14 @@ NOISE_FACTOR = 4
 MESH = make_mesh((1, 1), ("data", "model"))
 
 
-def configs(hnn, codec, arch=ARCH):
-    """(JAX config, port config, plan) of the reduced model in f32."""
+def configs(hnn, codec, arch=ARCH, overrides=None):
+    """(JAX config, port config, plan) of the reduced model in f32, with
+    ``overrides`` replaced on both sides."""
+    over = dict(overrides or {})
     jcfg = jax_reduced(jax_get_config(arch, hnn_mode=hnn)).replace(
-        codec=codec, dtype=jnp.float32)
+        codec=codec, dtype=jnp.float32, **over)
     tcfg = reduced(get_config(arch, hnn_mode=hnn)).replace(
-        codec=codec, dtype=torch.float32)
+        codec=codec, dtype=torch.float32, **over)
     return jcfg, tcfg, SP.make_plan(jcfg, smoke_shape("train"), MESH)
 
 
@@ -129,12 +131,15 @@ def assert_trees_close(got, want, tol=TOL, what=""):
                                    err_msg=f"{what}{k}")
 
 
-def check_forward_loss(hnn, codec, arch=ARCH):
-    """``forward_loss`` and every leaf's gradient of the reduced ``arch``,
-    port vs JAX.  Returns (JAX loss, JAX metrics, JAX gradients by
-    path)."""
-    jcfg, tcfg, plan = configs(hnn, codec, arch)
+def check_forward_loss(hnn, codec, arch=ARCH, overrides=None, seed=None):
+    """``forward_loss`` and every leaf's gradient of the reduced ``arch``
+    (with ``overrides``), port vs JAX; ``seed(params)``, where given,
+    reseeds the JAX parameters first.  Returns (JAX loss, JAX metrics,
+    JAX gradients by path)."""
+    jcfg, tcfg, plan = configs(hnn, codec, arch, overrides)
     params = jax_params(jcfg, plan)
+    if seed is not None:
+        params = seed(params)
     _, pspecs, _ = TR.shard_params_specs(jcfg, plan)
     _, bspecs = SP.train_input_specs(plan)
     ctx = SP.make_context(plan, "train")
